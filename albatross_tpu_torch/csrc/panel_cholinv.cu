@@ -13,9 +13,8 @@
 // memory (U and Wu together are 8 MB at b = 1024, L2-resident in the 50 MB
 // L2) and the work is a short sequence of launches from one C entry:
 //   per 128-row tile t (right-looking, in place in U):
-//     1. tile_factor_inverse: one block factors the diagonal tile in shared
-//        memory (128 rank-1 steps, upper triangle only) and inverts it by
-//        row-wise back substitution (8 threads per column, shuffle sums);
+//     1. tile_factor_inverse: one block factors the diagonal tile and
+//        inverts it, all in shared memory (below);
 //     2. the off-diagonal tile row: U[t, t+1:] = Wu[t,t]^T U[t, t+1:]
 //        (a tiled FP32 GEMM into scratch, then copied back);
 //     3. the in-panel trailing update: U[t+1:, t+1:] -= U[t, t+1:]^T U[t, t+1:]
@@ -23,12 +22,39 @@
 //   then per column tile r, the inverse composition
 //     Wu[:r, r] = -(Wu[:r, :r] U[:r, r]) Wu[r, r]
 //   and a final pass that zeroes U's strict lower triangle.
-// The serial tile factor is the latency-bound step (128 dependent steps,
-// two barriers each, on one SM); the GEMM steps spread over many blocks.
-// The products are plain FP32 FMA loops (no tensor cores, no cuBLAS): the
-// TPU kernel runs them at HIGHEST precision, and TF32 would not match it.
 //
-// A non-SPD pivot gives sqrtf(negative) = NaN, which flows through every
+// The tile step.  The first design factored the 128 x 128 tile by 128
+// rank-1 steps over 1024 threads (three block-wide barriers each, a runtime
+// division per element) and inverted it by 128 dependent substitution rows
+// (a barrier each): about 512 barriers on one SM while the other 131 wait,
+// 0.259 ms per tile and 73% of the kernel (H100, 700 W).  Its bound was
+// latency, not FLOPs: a tile holds about 1.4 MFLOP.  This design is a
+// right-looking factor over four 32-wide sub-panels s, 256 threads:
+//   (a) warp 0 factors the 32 x 32 diagonal block in registers, one column
+//       per lane; pivots and rows travel by __shfl_sync, so its 32 steps
+//       have no barrier;
+//   (b) the same warp inverts that factor by column-wise back substitution
+//       (each lane solves for its own column of the inverse), giving Winv_s;
+//   (c) the four 64-thread groups each own one 32 x 32 block: the sub-row
+//       U[s, q] = Winv_s^T A[s, q], then the upper trailing blocks
+//       A[p, q] -= U[s, p]^T U[s, q]; every thread keeps a fixed 4 x 4
+//       output patch in registers and all index arithmetic is fixed at
+//       compile time.  Beside the sub-row, groups form V[k, s] = U[k, s]
+//       Winv_s (k < s) for the inverse.
+// The tile's inverse is then composed by block diagonals as in the TPU
+// kernel's panel recursion: Wu[c, r] = -sum_{k=c}^{r-1} Wu[c, k] V[k, r].
+// The TPU kernel's Newton inverse (14 matrix products per tile) is not used:
+// it trades FLOPs for steps, which pays only on a 128 x 128 matrix unit.
+// That is 15 block-wide barriers per tile; its bound is the four serial
+// 32-step warp chains (shuffle, rsqrt, shuffle, FMA per step) and the
+// 32 x 32 x 32 block products between them.
+//
+// No tensor cores: the path needs FP32 products.  wgmma takes no FP32
+// operands, and with TF32 GEMMs the end-to-end gates fail (NLML error 3.8x
+// its gate, predictive mean 43x); the TPU kernel, too, runs its products at
+// HIGHEST precision.  The products here are plain FP32 FMA loops.
+//
+// A non-SPD pivot gives rsqrtf(negative) = NaN, which flows through every
 // later entry of the panel and out: it surfaces, it is not masked.
 
 #include <cuda_runtime.h>
@@ -37,71 +63,183 @@
 namespace {
 
 constexpr int T = 128;       // tile edge
-constexpr int LD = T + 1;    // padded shared-memory row
-constexpr int FACTOR_THREADS = 1024;
+constexpr int SB = 32;       // sub-panel edge: one warp's factor
+constexpr int NSB = T / SB;  // sub-panels per tile
+// Padded shared row: a multiple of 4 (float4 rows) with 8 * LD = 0 mod 32
+// and LD / 4 odd, so the 4 x 4 patches below read and write without bank
+// conflicts.
+constexpr int LD = T + 8;
+constexpr int TILE_THREADS = 256;
+constexpr int GROUP = 64;    // threads per 32 x 32 block: 8 x 8, 4 x 4 outputs each
+constexpr int GROUPS = TILE_THREADS / GROUP;
+constexpr size_t TILE_SMEM = 3 * T * LD * sizeof(float);
+constexpr unsigned FULL = 0xffffffffu;
 constexpr int BM = 64, BN = 64, BK = 16;   // GEMM block tile
 constexpr int GEMM_THREADS = 256;          // 16 x 16 threads, 4 x 4 outputs each
 
+__device__ __forceinline__ float* blk(float* M, int p, int q) { return M + p * SB * LD + q * SB; }
+
+// Barrier over the 64 threads of group g (named barrier g + 1; 0 is
+// __syncthreads).
+__device__ __forceinline__ void group_sync(int g) {
+  asm volatile("bar.sync %0, %1;" ::"r"(g + 1), "r"(GROUP) : "memory");
+}
+
+// acc += op(A) B over one 32-deep block.  A and B point at 32 x 32 blocks of
+// shared memory; op(A)[i][m] = A[m][i] when TA, else A[i][m].  The thread's
+// outputs are rows ty + 8 ii and columns tx + 8 jj.
+template <bool TA>
+__device__ __forceinline__ void mac32(float (&acc)[4][4], const float* A, const float* B, int ty,
+                                      int tx) {
+#pragma unroll 8
+  for (int m = 0; m < SB; ++m) {
+    float a[4], bv[4];
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii) a[ii] = TA ? A[m * LD + ty + 8 * ii] : A[(ty + 8 * ii) * LD + m];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) bv[jj] = B[m * LD + tx + 8 * jj];
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) acc[ii][jj] = fmaf(a[ii], bv[jj], acc[ii][jj]);
+  }
+}
+
+// C = alpha * acc + beta * C over the thread's 4 x 4 patch of a 32 x 32 block.
+__device__ __forceinline__ void store32(float* C, const float (&acc)[4][4], float alpha, float beta,
+                                        int ty, int tx) {
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      float* c = C + (ty + 8 * ii) * LD + tx + 8 * jj;
+      *c = beta == 0.0f ? alpha * acc[ii][jj] : fmaf(alpha, acc[ii][jj], beta * *c);
+    }
+}
+
+// One warp: factor the 32 x 32 diagonal block D in place (U^T U = D, upper
+// triangle) and write U^-1 to X; both get a strict lower triangle of 0.
+// Lane j holds column j in registers; only D's upper triangle is read.
+__device__ __forceinline__ void warp_factor_invert(float* D, float* X, int lane) {
+  float a[SB];
+#pragma unroll
+  for (int i = 0; i < SB; ++i) a[i] = i <= lane ? D[i * LD + lane] : 0.0f;
+  float rinv = 0.0f;  // 1 / U[lane][lane]
+#pragma unroll
+  for (int k = 0; k < SB; ++k) {
+    const float p = __shfl_sync(FULL, a[k], k);
+    const float r = rsqrtf(p);  // NaN for p < 0
+    a[k] = lane == k ? p * r : a[k] * r;  // row k of U
+    if (lane == k) rinv = r;
+    // lane j: A[i][j] -= U[k][i] U[k][j]; lanes below row i compute values
+    // of the lower triangle, which are never read
+#pragma unroll
+    for (int i = k + 1; i < SB; ++i) a[i] = fmaf(-__shfl_sync(FULL, a[k], i), a[k], a[i]);
+  }
+  // lane j solves U x = e_j bottom up; U[m][i] is lane i's a[m]
+  float x[SB];
+#pragma unroll
+  for (int i = 0; i < SB; ++i) x[i] = i == lane ? 1.0f : 0.0f;
+#pragma unroll
+  for (int i = SB - 1; i >= 0; --i) {
+    x[i] *= __shfl_sync(FULL, rinv, i);
+#pragma unroll
+    for (int m = 0; m < i; ++m) x[m] = fmaf(-__shfl_sync(FULL, a[m], i), x[i], x[m]);
+  }
+#pragma unroll
+  for (int i = 0; i < SB; ++i) {
+    D[i * LD + lane] = i <= lane ? a[i] : 0.0f;
+    X[i * LD + lane] = i <= lane ? x[i] : 0.0f;
+  }
+}
+
+// Sub-panel S of the tile in shared memory: S holds the tile (factored in
+// place), X its inverse, V the products V[k, r] = U[k, r] Winv_r (k < r).
+template <int S>
+__device__ __forceinline__ void subpanel_step(float* Sm, float* Xm, float* Vm, int tid) {
+  if (tid < 32) warp_factor_invert(blk(Sm, S, S), blk(Xm, S, S), tid);
+  __syncthreads();
+  const int g = tid / GROUP, t = tid % GROUP, ty = t / 8, tx = t % 8;
+  constexpr int NSOLVE = NSB - 1 - S;  // off-diagonal blocks of the sub-row
+  static_assert(NSOLVE + S <= GROUPS, "one round of sub-row and V blocks");
+  float acc[4][4] = {};
+  if (g < NSOLVE) {
+    // U[S, q] = Winv_S^T A[S, q]: the group reads its whole block, then writes it
+    float* Bq = blk(Sm, S, S + 1 + g);
+    mac32<true>(acc, blk(Xm, S, S), Bq, ty, tx);
+    group_sync(g);
+    store32(Bq, acc, 1.0f, 0.0f, ty, tx);
+  } else if (g < NSOLVE + S) {
+    const int k = g - NSOLVE;
+    mac32<false>(acc, blk(Sm, k, S), blk(Xm, S, S), ty, tx);
+    store32(blk(Vm, k, S), acc, 1.0f, 0.0f, ty, tx);
+  }
+  __syncthreads();
+  if constexpr (NSOLVE > 0) {
+    // A[p, q] -= U[S, p]^T U[S, q] over the upper blocks S < p <= q
+    constexpr int NU = NSOLVE * (NSOLVE + 1) / 2;
+    for (int u = g; u < NU; u += GROUPS) {
+      int p = S + 1, q = S + 1;
+      for (int v = 0; v < u; ++v) {
+        if (++q == NSB) q = ++p;
+      }
+      float up[4][4] = {};
+      mac32<true>(up, blk(Sm, S, p), blk(Sm, S, q), ty, tx);
+      store32(blk(Sm, p, q), up, -1.0f, 1.0f, ty, tx);
+    }
+    __syncthreads();
+  }
+}
+
+// Block diagonal D of the tile's inverse: Wu[c, c+D] = -sum_{k=c}^{c+D-1}
+// Wu[c, k] V[k, c+D], one group per block.
+template <int D>
+__device__ __forceinline__ void compose_diagonal(float* Xm, float* Vm, int tid) {
+  const int g = tid / GROUP, t = tid % GROUP, ty = t / 8, tx = t % 8;
+  if (g < NSB - D) {
+    float acc[4][4] = {};
+    for (int k = g; k < g + D; ++k) mac32<false>(acc, blk(Xm, g, k), blk(Vm, k, g + D), ty, tx);
+    store32(blk(Xm, g, g + D), acc, -1.0f, 0.0f, ty, tx);
+  }
+  __syncthreads();
+}
+
 // Factor the diagonal tile at U[t0:t0+T, t0:t0+T] (leading dimension b) and
 // write U_tt (strict lower zeroed) back, and its inverse to Wu_tt.
-__global__ void __launch_bounds__(FACTOR_THREADS)
+__global__ void __launch_bounds__(TILE_THREADS)
 tile_factor_inverse(float* __restrict__ U, float* __restrict__ Wu, int b, int t0) {
-  extern __shared__ float smem[];
-  float* S = smem;            // the tile, factored in place
-  float* X = smem + T * LD;   // its inverse
+  extern __shared__ float4 smem4[];
+  float* Sm = reinterpret_cast<float*>(smem4);
+  float* Xm = Sm + T * LD;
+  float* Vm = Xm + T * LD;
   const int tid = threadIdx.x;
+  constexpr int ROW4 = T / 4;  // float4 per tile row
 
-  for (int e = tid; e < T * T; e += FACTOR_THREADS) {
-    const int i = e / T, k = e % T;
-    S[i * LD + k] = U[(size_t)(t0 + i) * b + t0 + k];
-    X[i * LD + k] = 0.0f;
+  for (int e = tid; e < T * ROW4; e += TILE_THREADS) {
+    const int i = e / ROW4, k = 4 * (e % ROW4);
+    *reinterpret_cast<float4*>(Sm + i * LD + k) =
+        *reinterpret_cast<const float4*>(U + (size_t)(t0 + i) * b + t0 + k);
   }
   __syncthreads();
+  subpanel_step<0>(Sm, Xm, Vm, tid);
+  subpanel_step<1>(Sm, Xm, Vm, tid);
+  subpanel_step<2>(Sm, Xm, Vm, tid);
+  subpanel_step<3>(Sm, Xm, Vm, tid);
+  compose_diagonal<1>(Xm, Vm, tid);
+  compose_diagonal<2>(Xm, Vm, tid);
+  compose_diagonal<3>(Xm, Vm, tid);
 
-  // Right-looking factor of the upper triangle: row j of the result is
-  // column j of the lower factor.  Only entries k >= i are read or written.
-  for (int j = 0; j < T; ++j) {
-    const float d = sqrtf(S[j * LD + j]);
-    const float inv = 1.0f / d;
-    __syncthreads();  // every thread has read the pivot
-    if (tid > j && tid < T) S[j * LD + tid] *= inv;
-    if (tid == j) S[j * LD + j] = d;
-    __syncthreads();
-    const int m = T - 1 - j;  // trailing triangle is rows/cols j+1..T-1
-    for (int e = tid; e < m * m; e += FACTOR_THREADS) {
-      const int i = j + 1 + e / m, k = j + 1 + e % m;
-      if (k >= i) S[i * LD + k] -= S[j * LD + i] * S[j * LD + k];
-    }
-    __syncthreads();
-  }
-  for (int e = tid; e < T * T; e += FACTOR_THREADS) {
-    const int i = e / T, k = e % T;
-    if (k < i) S[i * LD + k] = 0.0f;
-  }
-  __syncthreads();
-
-  // X = S^-1 by rows, bottom up: X[i][j] = (delta_ij - sum_{k=i+1..j}
-  // S[i][k] X[k][j]) / S[i][i].  Row i needs only rows below it; 8 threads
-  // share each column's sum.
-  const int col = tid >> 3, part = tid & 7;
-  for (int i = T - 1; i >= 0; --i) {
-    float acc = 0.0f;
-    if (col > i) {
-      for (int k = i + 1 + part; k <= col; k += 8) acc += S[i * LD + k] * X[k * LD + col];
-    }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 4);
-    if (part == 0 && col >= i) {
-      X[i * LD + col] = ((col == i ? 1.0f : 0.0f) - acc) / S[i * LD + i];
-    }
-    __syncthreads();
-  }
-
-  for (int e = tid; e < T * T; e += FACTOR_THREADS) {
-    const int i = e / T, k = e % T;
-    U[(size_t)(t0 + i) * b + t0 + k] = S[i * LD + k];
-    Wu[(size_t)(t0 + i) * b + t0 + k] = X[i * LD + k];
+  for (int e = tid; e < T * ROW4; e += TILE_THREADS) {
+    const int i = e / ROW4, k = 4 * (e % ROW4);
+    float4 u = *reinterpret_cast<const float4*>(Sm + i * LD + k);
+    float4 w = *reinterpret_cast<const float4*>(Xm + i * LD + k);
+    if (k < i) u.x = w.x = 0.0f;
+    if (k + 1 < i) u.y = w.y = 0.0f;
+    if (k + 2 < i) u.z = w.z = 0.0f;
+    if (k + 3 < i) u.w = w.w = 0.0f;
+    const size_t at = (size_t)(t0 + i) * b + t0 + k;
+    *reinterpret_cast<float4*>(U + at) = u;
+    *reinterpret_cast<float4*>(Wu + at) = w;
   }
 }
 
@@ -192,9 +330,8 @@ extern "C" {
 int panel_cholinv_f32(const float* A, float* U, float* Wu, float* scratch, int b, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   if (b <= 0 || b % T != 0 || b > 1024) return (int)cudaErrorInvalidValue;
-  const size_t smem = 2 * T * LD * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(tile_factor_inverse,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TILE_SMEM);
   if (err != cudaSuccess) return (int)err;
   err = cudaMemcpyAsync(U, A, (size_t)b * b * sizeof(float), cudaMemcpyDeviceToDevice, stream);
   if (err != cudaSuccess) return (int)err;
@@ -204,7 +341,7 @@ int panel_cholinv_f32(const float* A, float* U, float* Wu, float* scratch, int b
   const int tiles = b / T;
   for (int t = 0; t < tiles; ++t) {
     const int t0 = t * T;
-    tile_factor_inverse<<<1, FACTOR_THREADS, smem, stream>>>(U, Wu, b, t0);
+    tile_factor_inverse<<<1, TILE_THREADS, TILE_SMEM, stream>>>(U, Wu, b, t0);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     const int w = b - t0 - T;  // width of the tile row right of the diagonal
     if (w == 0) break;

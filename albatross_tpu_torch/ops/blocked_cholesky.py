@@ -11,12 +11,17 @@ with optional fused whitening z = L^-1 rhs (the panel inverses double as
 forward substitution) and ``assemble=False``, which returns only
 (diag(L), z) -- all the NLML needs.
 
-For CUDA tensors every diagonal panel goes through the hand-written panel
-kernel (ops/panel_cholinv.py), which takes b <= 1024, so the CUDA block
-size is ``cuda_block_size``; CPU tensors keep the JAX package's
+For CUDA tensors the block size is ``cuda_block_size`` (b <= 1024, the
+panel kernel's bound) at every dtype; CPU tensors keep the JAX package's
 ``auto_block_size`` so the parity tests block the same way.  The panel
-solve and the trailing updates are plain large GEMMs (``torch.matmul``),
-as the JAX package leaves them to XLA.
+route is chosen by dtype before any launch: a CUDA f32 panel goes through
+the hand-written panel kernel (ops/panel_cholinv.py), which launches or
+raises; a CUDA f64 panel takes torch.linalg.cholesky + blocked_tri_inverse,
+the JAX package's default panel path.  The TPU kernel is f32-only (it
+casts its input to f32) and the JAX package never sends an f64 panel to
+it, so neither does the port.  The panel solve and the trailing updates
+are plain large GEMMs (``torch.matmul``), as the JAX package leaves them
+to XLA.
 """
 
 from __future__ import annotations
@@ -91,9 +96,10 @@ def blocked_tri_inverse(L: torch.Tensor, sub: int = DEFAULT_PANEL_SUB) -> torch.
 
 def _panel_chol_inverse(Akk: torch.Tensor, sub: int = DEFAULT_PANEL_SUB):
     """(L, L^-1) of a diagonal panel: the CUDA panel kernel for CUDA
-    tensors, torch.linalg.cholesky + blocked_tri_inverse for CPU tensors
-    (the JAX package's default panel path)."""
-    if Akk.is_cuda:
+    tensors other than f64, torch.linalg.cholesky + blocked_tri_inverse
+    (the JAX package's default panel path) for f64 CUDA tensors and for CPU
+    tensors."""
+    if Akk.is_cuda and Akk.dtype != torch.float64:
         from .panel_cholinv import panel_cholinv
 
         U, Wu = panel_cholinv(Akk)

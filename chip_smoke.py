@@ -10,7 +10,10 @@ size -- ``log_likelihood`` and ``fit -> predict -> marginal`` of
 SquaredExponential(0.5, 1.0) + measurement_only(IndependentNoise(0.3)),
 jitter 1e-4, on N = 28672 sorted 1-D f32 inputs on [0, 100] -- checks it
 against an f64 plain-PyTorch reference on the card and that every kernel
-of the path was launched, and times it.  Any failed check raises.
+of the path was launched, and times it.  A short f64 phase at N = 3072
+checks that f64 on the card factors its panels as the JAX package does
+(torch.linalg.cholesky + blocked_tri_inverse, no panel-kernel launch) and
+matches the CPU.  Any failed check raises.
 ``--profile`` adds a torch.profiler breakdown of one NLML's device time.
 
 The second-to-last line is a JSON object with one entry per kernel; the
@@ -35,6 +38,7 @@ N_TEST = 4096      # predict points
 SEED = 0
 LENGTH_SCALE, SIGMA, NOISE, JITTER = 0.5, 1.0, 0.3, 1e-4
 PANELS = 28        # N / 1024: the CUDA panel size at N = 28672
+N_F64 = 3072       # the f64 phase: three panels of 1024
 REPS = 5
 
 # Tolerances, with their reasons:
@@ -57,6 +61,9 @@ PANEL_PLAIN_TOL = 5e-6
 NLML_REL_TOL = 1e-5
 PREDICT_MEAN_TOL = 1e-4
 PREDICT_VAR_TOL = 5e-6
+# f64 on the card against f64 on the CPU: the same algorithm, only the
+# summation order of the BLAS differs (about 1e-13 here).
+F64_REL_TOL = 1e-9
 
 SOURCES = {
     "radial_gram": ("albatross_tpu_torch/csrc/radial_gram.cu", "albatross_tpu/ops/pallas_gram.py:81"),
@@ -119,6 +126,35 @@ def profile_nlml(torch, model, data, card: str, evals: int = 2) -> None:
           f"{device_us / 1e3:.1f} ms, device idle share {1 - device_us / 1e3 / wall_ms:.4f}")
     for us, key, count in sorted(rows, reverse=True)[:16]:
         print(f"  {us / 1e3 / evals:9.3f} ms/eval  {count // evals:5d} launches/eval  {key[:100]}")
+
+
+def check_f64_path(torch, np, pt, _build, model) -> None:
+    """f64 NLML and fit -> predict -> marginal at N_F64 on the card against
+    the same in f64 on the CPU; no panel-kernel launch (the kernel is f32,
+    as the TPU kernel is)."""
+    rng = np.random.default_rng(SEED + 1)
+    x = np.sort(rng.uniform(0.0, 100.0, N_F64))
+    y = np.sin(0.3 * x) + 0.1 * rng.standard_normal(N_F64)
+    xs = np.linspace(0.0, 100.0, 333)
+    _build.reset_launch_counts()
+    on_gpu = pt.RegressionDataset.create(x, y, device="cuda", dtype=torch.float64)
+    ll = model.log_likelihood(on_gpu).item()
+    pred = model.fit(on_gpu).predict(torch.as_tensor(xs, device="cuda")).marginal()
+    torch.cuda.synchronize()
+    launches = _build.LAUNCHES["panel_cholinv"]
+    on_cpu = pt.RegressionDataset.create(x, y, dtype=torch.float64)
+    ll_ref = model.log_likelihood(on_cpu).item()
+    ref = model.fit(on_cpu).predict(torch.as_tensor(xs)).marginal()
+    rel = abs(ll - ll_ref) / abs(ll_ref)
+    mean_err = (pred.mean.cpu() - ref.mean).abs().max().item()
+    var_err = (pred.variance.cpu() - ref.variance).abs().max().item()
+    print(f"f64 N={N_F64} on the card vs the CPU: NLML rel err {rel:.3e}, max|mean diff| "
+          f"{mean_err:.3e}, max|variance diff| {var_err:.3e} (tol {F64_REL_TOL:g}); "
+          f"panel-kernel launches {launches}")
+    if not (rel <= F64_REL_TOL and mean_err <= F64_REL_TOL and var_err <= F64_REL_TOL):
+        fail(f"f64 on the card disagrees with the CPU: {(rel, mean_err, var_err)}")
+    if launches != 0:
+        fail(f"an f64 factorization launched the f32 panel kernel {launches} times")
 
 
 def main() -> int:
@@ -240,16 +276,35 @@ def main() -> int:
     if not torch.isnan(U_bad).any().item():
         fail("a non-SPD panel did not surface as NaN")
     print("panel: a non-SPD pivot surfaces as NaN")
-    Up, Wp = plain_panel_cholinv(A)
-    U, Wu = panel_cholinv(A)
-    err = max((U - Up).abs().max().item(), (Wu - Wp).abs().max().item())
-    eu = ((U - Up).abs().max() / Up.abs().max()).item()
-    ew = ((Wu - Wp).abs().max() / Wp.abs().max()).item()
-    print(f"panel b=1024: max|kernel - plain| = {err:.3e}; relative to the max entry "
-          f"U {eu:.3e}, Wu {ew:.3e} (tol {PANEL_PLAIN_TOL:g})")
-    if not (eu <= PANEL_PLAIN_TOL and ew <= PANEL_PLAIN_TOL):
-        fail("panel kernel disagrees with its plain version at b=1024")
-    results["panel_cholinv"] = {"max_abs_err": err}
+    A128 = A[:128, :128].contiguous()  # one tile: the tile step alone
+    errs = []
+    for what, P in (("b=1024 M M^T + bI", A), ("b=128", A128)):
+        Up, Wp = plain_panel_cholinv(P)
+        U, Wu = panel_cholinv(P)
+        err = max((U - Up).abs().max().item(), (Wu - Wp).abs().max().item())
+        eu = ((U - Up).abs().max() / Up.abs().max()).item()
+        ew = ((Wu - Wp).abs().max() / Wp.abs().max()).item()
+        print(f"panel {what}: max|kernel - plain| = {err:.3e}; relative to the max entry "
+              f"U {eu:.3e}, Wu {ew:.3e} (tol {PANEL_PLAIN_TOL:g})")
+        if not (eu <= PANEL_PLAIN_TOL and ew <= PANEL_PLAIN_TOL):
+            fail(f"panel kernel disagrees with its plain version at {what}")
+        errs.append(err)
+    results["panel_cholinv"] = {"max_abs_err": max(errs)}
+    # The first diagonal panel of the main path: 1024 points about 0.0035
+    # apart under a length scale of 0.5, so kappa ~ 1e4 and the f32 errors
+    # of both versions grow with it; each is held against f64 at the JAX
+    # package's bounds, side by side.
+    A_path = radial_gram(x[:1024], x[:1024], LENGTH_SCALE, SIGMA, profile, diag_add=diag[:1024])
+    L = torch.linalg.cholesky(A_path.double())
+    W = torch.linalg.inv(L)
+    line = []
+    for what, (U, Wu) in (("kernel", panel_cholinv(A_path)), ("plain", plain_panel_cholinv(A_path))):
+        eu = ((U.T.double() - L).abs().max() / L.abs().max()).item()
+        ew = ((Wu.T.double() - W).abs().max() / W.abs().max()).item()
+        line.append(f"{what} U {eu:.3e}, Wu {ew:.3e}")
+        if what == "kernel" and not (eu <= PANEL_U_TOL and ew <= PANEL_WU_TOL):
+            fail(f"panel kernel on the main path's first panel: U {eu}, Wu {ew}")
+    print(f"panel b=1024 main path's first panel, rel err vs f64: {'; '.join(line)}")
 
     # -- the main path, through the public API -----------------------------
     kernel = pt.SquaredExponential(LENGTH_SCALE, SIGMA) + pt.measurement_only(
@@ -323,6 +378,7 @@ def main() -> int:
     if gates_pass(tf32_errors):
         fail(f"the end-to-end gates accept a TF32 factorization: {tf32_errors}")
     print("TF32 control: the end-to-end gates reject it")
+    check_f64_path(torch, np, pt, _build, model)
 
     # -- timings (after the counted run) -----------------------------------
     def nlml_once():
@@ -356,6 +412,9 @@ def main() -> int:
     results["panel_cholinv"]["plain_ms"] = cuda_ms(torch, lambda: plain_panel_cholinv(A))
     for name, r in results.items():
         print(f"[{card}] {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+    print(f"[{card}] panel_cholinv b=128 (one tile step): kernel "
+          f"{cuda_ms(torch, lambda: panel_cholinv(A128)):.4f} ms, plain "
+          f"{cuda_ms(torch, lambda: plain_panel_cholinv(A128)):.4f} ms")
     if args.profile:
         profile_nlml(torch, model, data, card)
 

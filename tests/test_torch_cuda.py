@@ -18,7 +18,7 @@ import torch
 import albatross_tpu_torch as pt
 from albatross_tpu_torch import _build
 from albatross_tpu_torch.ops.blocked_cholesky import blocked_cholesky_cols
-from albatross_tpu_torch.ops.panel_cholinv import panel_cholinv
+from albatross_tpu_torch.ops.panel_cholinv import panel_cholinv, plain_panel_cholinv
 from albatross_tpu_torch.ops.radial_gram import PROFILES, plain_radial_gram, radial_gram
 
 pytestmark = pytest.mark.cuda
@@ -76,7 +76,8 @@ def test_gram_kernel_rejects_bad_inputs(cuda):
         radial_gram(X.T, X.T, 1.0, 1.0)
 
 
-@pytest.mark.parametrize("b", [128, 256, 512, 1024])
+# 384 and 768 are panel sizes that cuda_block_size picks (n = 2304, 3072 ...)
+@pytest.mark.parametrize("b", [128, 256, 384, 512, 768, 1024])
 def test_panel_kernel_matches_f64(cuda, b):
     g = torch.Generator().manual_seed(b)
     M = torch.randn((b, b), generator=g, dtype=torch.float64)
@@ -105,6 +106,38 @@ def test_panel_kernel_guards_and_nan(cuda):
     assert torch.isnan(U).any()
 
 
+def test_panel_kernel_nan_in_last_sub_block(cuda):
+    """A non-SPD pivot at 1000 of b = 1024 lies in the last 32-wide
+    sub-panel of the last 128-tile: the NaN still surfaces in U and Wu."""
+    g = torch.Generator().manual_seed(7)
+    M = torch.randn((1024, 1024), generator=g, dtype=torch.float64)
+    A = (M @ M.T + 1024 * torch.eye(1024, dtype=torch.float64)).float().to(cuda)
+    A[1000, 1000] = -1.0
+    U, Wu = panel_cholinv(A)
+    assert torch.isnan(U[1000:, 1000:]).any() and torch.isnan(Wu).any()
+    assert torch.isfinite(U[:1000, :1000]).all()
+
+
+def test_panel_kernel_on_main_path_panel(cuda):
+    """A panel as the bench's NLML factors it: the SE gram of 1024 sorted
+    points on [0, 100] plus noise and jitter, whose conditioning differs
+    from M M^T + b I.  Held against f64 (the JAX package's bounds) and
+    against the plain f32 version (chip_smoke.py's PANEL_PLAIN_TOL)."""
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(np.sort(rng.uniform(0.0, 100.0, 1024)))
+    K64 = torch.exp(-0.5 * (x[:, None] - x[None, :]) ** 2 / 0.5**2)
+    K64 += (0.3**2 + 1e-4) * torch.eye(1024, dtype=torch.float64)
+    A = K64.float().to(cuda)
+    U, Wu = panel_cholinv(A)
+    L = torch.linalg.cholesky(A.double())
+    W = torch.linalg.inv(L)
+    assert (U.T.double() - L).abs().max() / L.abs().max() < 1e-5
+    assert (Wu.T.double() - W).abs().max() / W.abs().max() < 1e-4
+    Up, Wp = plain_panel_cholinv(A)
+    assert (U - Up).abs().max() / Up.abs().max() <= 5e-6
+    assert (Wu - Wp).abs().max() / Wp.abs().max() <= 5e-6
+
+
 def test_blocked_cholesky_on_cuda(cuda):
     g = torch.Generator().manual_seed(0)
     n = 2304  # cuda_block_size -> 768, three panels
@@ -118,6 +151,45 @@ def test_blocked_cholesky_on_cuda(cuda):
     torch.testing.assert_close(diag.double(), L.diagonal(), rtol=1e-5, atol=0)
     z_ref = torch.linalg.solve_triangular(L, y.double()[:, None], upper=False)[:, 0]
     assert (z.double() - z_ref).abs().max() / z_ref.abs().max() < 1e-4
+
+
+def _bench_gp(n, seed):
+    rng = np.random.default_rng(seed)
+    x = np.sort(rng.uniform(0, 100, n))
+    y = np.sin(0.3 * x) + 0.1 * rng.standard_normal(n)
+    kernel = pt.SquaredExponential(0.5, 1.0) + pt.measurement_only(
+        pt.IndependentNoise(0.3, assume_unique=True)
+    )
+    return pt.gp_from_covariance(kernel, jitter=1e-4), x, y
+
+
+def test_gp_f64_on_cuda_takes_the_jax_default_panel_path(cuda):
+    """f64 on CUDA above n = 2048 (three panels of 1024) factors with
+    torch.linalg.cholesky + blocked_tri_inverse, as the JAX package does for
+    f64, and never launches the f32-only panel kernel."""
+    n = 3072
+    model, x, y = _bench_gp(n, seed=2)
+    on_cpu = pt.RegressionDataset.create(x, y, dtype=torch.float64)
+    on_gpu = pt.RegressionDataset.create(x, y, device="cuda", dtype=torch.float64)
+    xs = np.linspace(0, 100, 333)
+    _build.reset_launch_counts()
+    ll = model.log_likelihood(on_gpu).item()
+    got = model.fit(on_gpu).predict(torch.as_tensor(xs, device=cuda)).marginal()
+    assert _build.LAUNCHES["panel_cholinv"] == 0
+    ll_ref = model.log_likelihood(on_cpu).item()
+    ref = model.fit(on_cpu).predict(torch.as_tensor(xs)).marginal()
+    assert abs(ll - ll_ref) <= 1e-9 * abs(ll_ref)
+    assert (got.mean.cpu() - ref.mean).abs().max() <= 1e-9
+    assert (got.variance.cpu() - ref.variance).abs().max() <= 1e-9
+
+
+def test_gp_f32_on_cuda_launches_every_panel(cuda):
+    n = 3072
+    model, x, y = _bench_gp(n, seed=2)
+    on_gpu = pt.RegressionDataset.create(x, y, device="cuda", dtype=torch.float32)
+    _build.reset_launch_counts()
+    assert math.isfinite(model.log_likelihood(on_gpu).item())
+    assert _build.LAUNCHES["panel_cholinv"] == n // 1024
 
 
 def test_gp_on_cuda_matches_cpu_f64(cuda):
