@@ -15,13 +15,19 @@
 //   per 128-row tile t (right-looking, in place in U):
 //     1. tile_factor_inverse: one block factors the diagonal tile and
 //        inverts it, all in shared memory (below);
-//     2. the off-diagonal tile row: U[t, t+1:] = Wu[t,t]^T U[t, t+1:]
-//        (a tiled FP32 GEMM into scratch, then copied back);
-//     3. the in-panel trailing update: U[t+1:, t+1:] -= U[t, t+1:]^T U[t, t+1:]
-//        (same GEMM; blocks wholly below the diagonal exit at once);
-//   then per column tile r, the inverse composition
-//     Wu[:r, r] = -(Wu[:r, :r] U[:r, r]) Wu[r, r]
-//   and a final pass that zeroes U's strict lower triangle.
+//     2. row_solve: the off-diagonal tile row U[t, t+1:] = Wu[t,t]^T
+//        U[t, t+1:], in place: each block holds all 128 rows of its column
+//        slice before it writes; it also writes the zeros of U's strict
+//        lower triangle in the mirrored column below the tile;
+//     3. trailing_update: U[t+1:, t+1:] -= U[t, t+1:]^T U[t, t+1:] over the
+//        upper 64 x 64 blocks;
+//   then the inverse is composed in log depth from the tile inverses, one
+//   pair of diagonal blocks per blockIdx.z, sizes 128, 256, 512:
+//     Wu[o, o+s] = -(W11 U[o, o+s]) W22,  W11 = Wu[o, o], W22 = Wu[o+s, o+s],
+//   two launches a level; W11 and W22 are upper-triangular, so each
+//   product's K loop covers only their upper part, and the second launch
+//   writes the mirrored zeros of Wu's strict lower triangle.  Every entry of
+//   U and Wu is written by one of these launches: no memset, no zeroing pass.
 //
 // The tile step.  The first design factored the 128 x 128 tile by 128
 // rank-1 steps over 1024 threads (three block-wide barriers each, a runtime
@@ -31,44 +37,48 @@
 // latency, not FLOPs: a tile holds about 1.4 MFLOP.  This design is a
 // right-looking factor over four 32-wide sub-panels s, 256 threads:
 //   (a) warp 0 factors the 32 x 32 diagonal block in registers, one column
-//       per lane; pivots and rows travel by __shfl_sync, so its 32 steps
-//       have no barrier;
-//   (b) the same warp inverts that factor by column-wise back substitution
-//       (each lane solves for its own column of the inverse), giving Winv_s;
+//       per lane; each step's pivot travels by one __shfl_sync and its row
+//       of U through shared memory as broadcast float4 reads, with
+//       __syncwarp only: no block-wide barrier inside the 32 steps;
+//   (b) in the same steps the warp inverts that factor by forward
+//       substitution: lane j forms row j of Winv_s = U_ss^-1 from the row of
+//       U that step k broadcasts, so the inverse costs one FMA per entry;
 //   (c) the four 64-thread groups each own one 32 x 32 block: the sub-row
 //       U[s, q] = Winv_s^T A[s, q], then the upper trailing blocks
 //       A[p, q] -= U[s, p]^T U[s, q]; every thread keeps a fixed 4 x 4
-//       output patch in registers and all index arithmetic is fixed at
-//       compile time.  Beside the sub-row, groups form V[k, s] = U[k, s]
-//       Winv_s (k < s) for the inverse.
+//       output patch in registers, reads its operands as float4s, and all
+//       index arithmetic is fixed at compile time.  Beside the sub-row,
+//       groups form V[k, s] = U[k, s] Winv_s (k < s) for the inverse.
 // The tile's inverse is then composed by block diagonals as in the TPU
 // kernel's panel recursion: Wu[c, r] = -sum_{k=c}^{r-1} Wu[c, k] V[k, r].
 // The TPU kernel's Newton inverse (14 matrix products per tile) is not used:
 // it trades FLOPs for steps, which pays only on a 128 x 128 matrix unit.
-// That is 15 block-wide barriers per tile; its bound is the four serial
-// 32-step warp chains (shuffle, rsqrt, shuffle, FMA per step) and the
-// 32 x 32 x 32 block products between them.
+// That is 15 block-wide barriers per tile.  clock64() stamps put a tile at
+// about 48k cycles (0.025 ms): the four warp chains about 18k (each step is
+// issue-bound by its ~60 FMAs on one warp), the 14 rounds of 32 x 32 x 32
+// block products about 22k, the tile's load and store about 8k.  The
+// warp's code is one shared copy: four inlined copies (34 KB of straight
+// code each) ran 1.6x slower from the instruction cache.
 //
 // No tensor cores: the path needs FP32 products.  wgmma takes no FP32
 // operands, and with TF32 GEMMs the end-to-end gates fail (NLML error 3.8x
 // its gate, predictive mean 43x); the TPU kernel, too, runs its products at
 // HIGHEST precision.  The products here are plain FP32 FMA loops.
 //
-// A non-SPD pivot gives rsqrtf(negative) = NaN, which flows through every
-// later entry of the panel and out: it surfaces, it is not masked.
+// A non-SPD pivot gives rsqrt(negative) = NaN in U and Wu from the pivot on,
+// which flows out of the panel: it surfaces, it is not masked.  Rows of U,
+// and rows and columns of Wu, before the pivot stay finite.
 
 #include <cuda_runtime.h>
-#include <stdint.h>
 
 namespace {
 
 constexpr int T = 128;       // tile edge
 constexpr int SB = 32;       // sub-panel edge: one warp's factor
 constexpr int NSB = T / SB;  // sub-panels per tile
-// Padded shared row: a multiple of 4 (float4 rows) with 8 * LD = 0 mod 32
-// and LD / 4 odd, so the 4 x 4 patches below read and write without bank
-// conflicts.
-constexpr int LD = T + 8;
+// Padded shared row: a multiple of 4 (float4 rows) with LD = 4 mod 32, so
+// the float4 reads of the 4 x 4 patches below are free of bank conflicts.
+constexpr int LD = T + 4;
 constexpr int TILE_THREADS = 256;
 constexpr int GROUP = 64;    // threads per 32 x 32 block: 8 x 8, 4 x 4 outputs each
 constexpr int GROUPS = TILE_THREADS / GROUP;
@@ -76,6 +86,10 @@ constexpr size_t TILE_SMEM = 3 * T * LD * sizeof(float);
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int BM = 64, BN = 64, BK = 16;   // GEMM block tile
 constexpr int GEMM_THREADS = 256;          // 16 x 16 threads, 4 x 4 outputs each
+constexpr int RS_BN = 32;                  // row_solve: columns per block
+constexpr int RS_THREADS = 256;            // 32 x 8 threads, 4 x 4 outputs each
+constexpr int RS_LDW = T + 4, RS_LDB = RS_BN + 4;
+constexpr size_t RS_SMEM = (size_t)(T * RS_LDW + T * RS_LDB) * sizeof(float);
 
 __device__ __forceinline__ float* blk(float* M, int p, int q) { return M + p * SB * LD + q * SB; }
 
@@ -85,72 +99,116 @@ __device__ __forceinline__ void group_sync(int g) {
   asm volatile("bar.sync %0, %1;" ::"r"(g + 1), "r"(GROUP) : "memory");
 }
 
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+
+// Row of a thread's ii-th output in a 32 x 32 block product: 4 ty + ii when
+// op(A) = A^T (one float4 of A's row m covers the four rows), else ty + 8 ii
+// (one float4 of each of those rows covers four m).
+template <bool TA>
+__device__ __forceinline__ int row32(int ty, int ii) { return TA ? 4 * ty + ii : ty + 8 * ii; }
+
 // acc += op(A) B over one 32-deep block.  A and B point at 32 x 32 blocks of
 // shared memory; op(A)[i][m] = A[m][i] when TA, else A[i][m].  The thread's
-// outputs are rows ty + 8 ii and columns tx + 8 jj.
+// outputs are rows row32<TA>(ty, ii) and columns 4 tx + jj.  Every read is
+// a float4: two per 16 FMAs.
 template <bool TA>
 __device__ __forceinline__ void mac32(float (&acc)[4][4], const float* A, const float* B, int ty,
                                       int tx) {
-#pragma unroll 8
-  for (int m = 0; m < SB; ++m) {
-    float a[4], bv[4];
+#pragma unroll 2
+  for (int m0 = 0; m0 < SB; m0 += 4) {
+    float av[4][4];  // av[mm][ii] = op(A)[row ii][m0 + mm]
+    if (TA) {
 #pragma unroll
-    for (int ii = 0; ii < 4; ++ii) a[ii] = TA ? A[m * LD + ty + 8 * ii] : A[(ty + 8 * ii) * LD + m];
+      for (int mm = 0; mm < 4; ++mm) {
+        const float4 v = ld4(A + (m0 + mm) * LD + 4 * ty);
+        av[mm][0] = v.x, av[mm][1] = v.y, av[mm][2] = v.z, av[mm][3] = v.w;
+      }
+    } else {
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) bv[jj] = B[m * LD + tx + 8 * jj];
+      for (int ii = 0; ii < 4; ++ii) {
+        const float4 v = ld4(A + (ty + 8 * ii) * LD + m0);
+        av[0][ii] = v.x, av[1][ii] = v.y, av[2][ii] = v.z, av[3][ii] = v.w;
+      }
+    }
 #pragma unroll
-    for (int ii = 0; ii < 4; ++ii)
+    for (int mm = 0; mm < 4; ++mm) {
+      const float4 v = ld4(B + (m0 + mm) * LD + 4 * tx);
+      const float bv[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) acc[ii][jj] = fmaf(a[ii], bv[jj], acc[ii][jj]);
+      for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) acc[ii][jj] = fmaf(av[mm][ii], bv[jj], acc[ii][jj]);
+    }
   }
 }
 
-// C = alpha * acc + beta * C over the thread's 4 x 4 patch of a 32 x 32 block.
+// C = alpha * acc + beta * C over the thread's 4 x 4 patch of a 32 x 32
+// block, rows laid out as mac32<TA> left them.
+template <bool TA>
 __device__ __forceinline__ void store32(float* C, const float (&acc)[4][4], float alpha, float beta,
                                         int ty, int tx) {
 #pragma unroll
-  for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      float* c = C + (ty + 8 * ii) * LD + tx + 8 * jj;
-      *c = beta == 0.0f ? alpha * acc[ii][jj] : fmaf(alpha, acc[ii][jj], beta * *c);
+  for (int ii = 0; ii < 4; ++ii) {
+    float4* c = reinterpret_cast<float4*>(C + row32<TA>(ty, ii) * LD + 4 * tx);
+    float4 v = make_float4(alpha * acc[ii][0], alpha * acc[ii][1], alpha * acc[ii][2], alpha * acc[ii][3]);
+    if (beta != 0.0f) {
+      const float4 old = *c;
+      v = make_float4(fmaf(beta, old.x, v.x), fmaf(beta, old.y, v.y), fmaf(beta, old.z, v.z),
+                      fmaf(beta, old.w, v.w));
     }
+    *c = v;
+  }
 }
 
 // One warp: factor the 32 x 32 diagonal block D in place (U^T U = D, upper
 // triangle) and write U^-1 to X; both get a strict lower triangle of 0.
-// Lane j holds column j in registers; only D's upper triangle is read.
-__device__ __forceinline__ void warp_factor_invert(float* D, float* X, int lane) {
-  float a[SB];
-#pragma unroll
-  for (int i = 0; i < SB; ++i) a[i] = i <= lane ? D[i * LD + lane] : 0.0f;
-  float rinv = 0.0f;  // 1 / U[lane][lane]
-#pragma unroll
-  for (int k = 0; k < SB; ++k) {
-    const float p = __shfl_sync(FULL, a[k], k);
-    const float r = rsqrtf(p);  // NaN for p < 0
-    a[k] = lane == k ? p * r : a[k] * r;  // row k of U
-    if (lane == k) rinv = r;
-    // lane j: A[i][j] -= U[k][i] U[k][j]; lanes below row i compute values
-    // of the lower triangle, which are never read
-#pragma unroll
-    for (int i = k + 1; i < SB; ++i) a[i] = fmaf(-__shfl_sync(FULL, a[k], i), a[k], a[i]);
-  }
-  // lane j solves U x = e_j bottom up; U[m][i] is lane i's a[m]
-  float x[SB];
-#pragma unroll
-  for (int i = 0; i < SB; ++i) x[i] = i == lane ? 1.0f : 0.0f;
-#pragma unroll
-  for (int i = SB - 1; i >= 0; --i) {
-    x[i] *= __shfl_sync(FULL, rinv, i);
-#pragma unroll
-    for (int m = 0; m < i; ++m) x[m] = fmaf(-__shfl_sync(FULL, a[m], i), x[i], x[m]);
-  }
+// Lane j holds column j of the block in a[] and column j of L^-1 = (U^-1)^T
+// (row j of U^-1) in y[], both in registers; only D's upper triangle is
+// read.  Step k writes row k of U to D, and every lane reads it back as
+// broadcast float4s (8 reads a step where 31 shuffles would be needed);
+// the same values drive the factor's update and the forward substitution
+// of L^-1.  The next pivot is formed from lane k + 1's own entries and
+// shuffled, so the serial chain of a step is one shuffle, one rsqrt and
+// two FP32 operations.  Not inlined: the four sub-panels share one copy of
+// this code, which then stays in the instruction cache.
+__device__ __noinline__ void warp_factor_invert(float* D, float* X, int lane) {
+  __syncwarp();
+  float a[SB], y[SB];
 #pragma unroll
   for (int i = 0; i < SB; ++i) {
-    D[i * LD + lane] = i <= lane ? a[i] : 0.0f;
-    X[i * LD + lane] = i <= lane ? x[i] : 0.0f;
+    a[i] = i <= lane ? D[i * LD + lane] : 0.0f;
+    y[i] = i == lane ? 1.0f : 0.0f;
   }
+  float p = __shfl_sync(FULL, a[0], 0);
+#pragma unroll
+  for (int k = 0; k < SB; ++k) {
+    float r;  // 1 / sqrt(p), NaN for p < 0 (a pivot is never subnormal)
+    asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(p));
+    a[k] = lane == k ? p * r : a[k] * r;  // row k of U
+    // L^-1[k][j] is 0 above the diagonal: setting it (not scaling it)
+    // keeps a NaN pivot below row j out of column j
+    y[k] = k >= lane ? y[k] * r : 0.0f;
+    D[k * LD + lane] = lane >= k ? a[k] : 0.0f;
+    if (k + 1 < SB) p = __shfl_sync(FULL, fmaf(-a[k], a[k], a[k + 1]), k + 1);
+    __syncwarp();
+    // lane j: A[i][j] -= U[k][i] U[k][j] and L^-1[i][j] -= U[k][i] L^-1[k][j]
+    // for i > k; lanes below row i compute values of the lower triangle of
+    // A, which are never read
+#pragma unroll
+    for (int c = (k + 1) / 4; c < SB / 4; ++c) {
+      const float4 v = ld4(D + k * LD + 4 * c);
+      const float u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (4 * c + e > k) {
+          a[4 * c + e] = fmaf(-u[e], a[k], a[4 * c + e]);
+          y[4 * c + e] = fmaf(-u[e], y[k], y[4 * c + e]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < SB; ++i) X[lane * LD + i] = i >= lane ? y[i] : 0.0f;
 }
 
 // Sub-panel S of the tile in shared memory: S holds the tile (factored in
@@ -168,11 +226,11 @@ __device__ __forceinline__ void subpanel_step(float* Sm, float* Xm, float* Vm, i
     float* Bq = blk(Sm, S, S + 1 + g);
     mac32<true>(acc, blk(Xm, S, S), Bq, ty, tx);
     group_sync(g);
-    store32(Bq, acc, 1.0f, 0.0f, ty, tx);
+    store32<true>(Bq, acc, 1.0f, 0.0f, ty, tx);
   } else if (g < NSOLVE + S) {
     const int k = g - NSOLVE;
     mac32<false>(acc, blk(Sm, k, S), blk(Xm, S, S), ty, tx);
-    store32(blk(Vm, k, S), acc, 1.0f, 0.0f, ty, tx);
+    store32<false>(blk(Vm, k, S), acc, 1.0f, 0.0f, ty, tx);
   }
   __syncthreads();
   if constexpr (NSOLVE > 0) {
@@ -185,7 +243,7 @@ __device__ __forceinline__ void subpanel_step(float* Sm, float* Xm, float* Vm, i
       }
       float up[4][4] = {};
       mac32<true>(up, blk(Sm, S, p), blk(Sm, S, q), ty, tx);
-      store32(blk(Sm, p, q), up, -1.0f, 1.0f, ty, tx);
+      store32<true>(blk(Sm, p, q), up, -1.0f, 1.0f, ty, tx);
     }
     __syncthreads();
   }
@@ -199,7 +257,7 @@ __device__ __forceinline__ void compose_diagonal(float* Xm, float* Vm, int tid) 
   if (g < NSB - D) {
     float acc[4][4] = {};
     for (int k = g; k < g + D; ++k) mac32<false>(acc, blk(Xm, g, k), blk(Vm, k, g + D), ty, tx);
-    store32(blk(Xm, g, g + D), acc, -1.0f, 0.0f, ty, tx);
+    store32<false>(blk(Xm, g, g + D), acc, -1.0f, 0.0f, ty, tx);
   }
   __syncthreads();
 }
@@ -215,6 +273,7 @@ tile_factor_inverse(float* __restrict__ U, float* __restrict__ Wu, int b, int t0
   const int tid = threadIdx.x;
   constexpr int ROW4 = T / 4;  // float4 per tile row
 
+#pragma unroll
   for (int e = tid; e < T * ROW4; e += TILE_THREADS) {
     const int i = e / ROW4, k = 4 * (e % ROW4);
     *reinterpret_cast<float4*>(Sm + i * LD + k) =
@@ -229,6 +288,7 @@ tile_factor_inverse(float* __restrict__ U, float* __restrict__ Wu, int b, int t0
   compose_diagonal<2>(Xm, Vm, tid);
   compose_diagonal<3>(Xm, Vm, tid);
 
+#pragma unroll 4
   for (int e = tid; e < T * ROW4; e += TILE_THREADS) {
     const int i = e / ROW4, k = 4 * (e % ROW4);
     float4 u = *reinterpret_cast<const float4*>(Sm + i * LD + k);
@@ -243,132 +303,193 @@ tile_factor_inverse(float* __restrict__ U, float* __restrict__ Wu, int b, int t0
   }
 }
 
-// C = alpha * op(A) B + beta * C, all row-major; op(A) is (M, K), A^T when
-// TRANS_A (then A is stored (K, M)).  M, N multiples of 64, K of 16.  With
-// skip_lower, blocks whose tile lies strictly below C's diagonal exit.
-// beta == 0 never reads C.  Each output sums over k in order, so a product
-// of the form B^T B is bitwise symmetric.
-template <bool TRANS_A>
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_f32(int M, int N, int K, float alpha, const float* __restrict__ A, int lda,
-         const float* __restrict__ B, int ldb, float beta, float* C, int ldc,
-         int skip_lower) {
-  const int bm = blockIdx.y * BM, bn = blockIdx.x * BN;
-  if (skip_lower && bm >= bn + BN) return;
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Bs[BK][BN + 4];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4];
+// U[t, t+1:] = Wu_tt^T U[t, t+1:] in place, RS_BN columns a block, and
+// U[t+1:, t] = 0 (the mirrored strict lower part of U).  The block holds
+// Wu_tt and all 128 rows of its column slice in shared memory before it
+// writes, so no other block reads what it overwrites.
+__global__ void __launch_bounds__(RS_THREADS)
+row_solve(float* __restrict__ U, const float* __restrict__ Wu, int b, int t0) {
+  extern __shared__ float4 smem4[];
+  float* Ws = reinterpret_cast<float*>(smem4);
+  float* Bs = Ws + T * RS_LDW;
+  const int c0 = t0 + T + blockIdx.x * RS_BN;  // first column of the slice
+  const int tid = threadIdx.x;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int e = tid; e < T * T / 4; e += RS_THREADS) {
+    const int i = e / (T / 4), k = 4 * (e % (T / 4));
+    *reinterpret_cast<float4*>(Ws + i * RS_LDW + k) =
+        *reinterpret_cast<const float4*>(Wu + (size_t)(t0 + i) * b + t0 + k);
+  }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int e = threadIdx.x; e < BM * BK; e += GEMM_THREADS) {
-      if (TRANS_A) {
-        const int k = e / BM, mm = e % BM;
-        As[k][mm] = A[(size_t)(k0 + k) * lda + bm + mm];
-      } else {
-        const int mm = e / BK, k = e % BK;
-        As[k][mm] = A[(size_t)(bm + mm) * lda + k0 + k];
-      }
-    }
-    for (int e = threadIdx.x; e < BK * BN; e += GEMM_THREADS) {
-      const int k = e / BN, nn = e % BN;
-      Bs[k][nn] = B[(size_t)(k0 + k) * ldb + bn + nn];
-    }
-    __syncthreads();
+  for (int e = tid; e < T * RS_BN / 4; e += RS_THREADS) {
+    const int i = e / (RS_BN / 4), k = 4 * (e % (RS_BN / 4));
+    *reinterpret_cast<float4*>(Bs + i * RS_LDB + k) =
+        *reinterpret_cast<const float4*>(U + (size_t)(t0 + i) * b + c0 + k);
+  }
+  __syncthreads();
+  const int ty = tid / (RS_BN / 4), tx = tid % (RS_BN / 4);  // rows 4 ty + i, columns 4 tx + j
+  float acc[4][4] = {};
+  // out[i][c] = sum_m Wu_tt[m][i] slice[m][c]; Wu_tt[m][i] = 0 for m > i
+  for (int m = 0; m < 4 * ty + 4; ++m) {
+    const float4 a = *reinterpret_cast<const float4*>(Ws + m * RS_LDW + 4 * ty);
+    const float4 bv = *reinterpret_cast<const float4*>(Bs + m * RS_LDB + 4 * tx);
+    const float av[4] = {a.x, a.y, a.z, a.w}, bw[4] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float a[4], bv[4];
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Bs[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bw[j], acc[i][j]);
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
+    *reinterpret_cast<float4*>(U + (size_t)(t0 + 4 * ty + i) * b + c0 + 4 * tx) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+  for (int e = tid; e < RS_BN * T / 4; e += RS_THREADS) {
+    const int c = e / (T / 4), k = 4 * (e % (T / 4));
+    *reinterpret_cast<float4*>(U + (size_t)(c0 + c) * b + t0 + k) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+}
+
+// acc += op(A)[bm:bm+BM, kb:ke] B[kb:ke, bn:bn+BN], row-major, op(A) = A^T
+// when TRANS_A (A stored (K, M)).  BK-deep slices pass through shared
+// memory while the next slice is fetched into registers.  Thread (ty, tx)
+// of 16 x 16 owns rows bm + 4 ty + i and columns bn + 4 tx + j; each output
+// sums over k in order, so a product B^T B is bitwise symmetric.  kb, ke
+// are multiples of BK and the same for the whole block.
+template <bool TRANS_A>
+__device__ __forceinline__ void gemm_tile(float (&acc)[4][4], const float* __restrict__ A, int lda,
+                                          const float* __restrict__ B, int ldb, int bm, int bn,
+                                          int kb, int ke) {
+  __shared__ __align__(16) float As[BK][BM + 4];
+  __shared__ __align__(16) float Bs[BK][BN + 4];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  float4 ra, rb;
+  auto fetch = [&](int k0) {
+    if (TRANS_A) {
+      ra = *reinterpret_cast<const float4*>(A + (size_t)(k0 + tid / 16) * lda + bm + 4 * (tid % 16));
+    } else {
+      ra = *reinterpret_cast<const float4*>(A + (size_t)(bm + tid / 4) * lda + k0 + 4 * (tid % 4));
+    }
+    rb = *reinterpret_cast<const float4*>(B + (size_t)(k0 + tid / 16) * ldb + bn + 4 * (tid % 16));
+  };
+  if (kb >= ke) return;
+  fetch(kb);
+  for (int k0 = kb; k0 < ke; k0 += BK) {
+    if (TRANS_A) {
+      *reinterpret_cast<float4*>(&As[tid / 16][4 * (tid % 16)]) = ra;
+    } else {
+      const int m = tid / 4, k = 4 * (tid % 4);
+      As[k][m] = ra.x;
+      As[k + 1][m] = ra.y;
+      As[k + 2][m] = ra.z;
+      As[k + 3][m] = ra.w;
+    }
+    *reinterpret_cast<float4*>(&Bs[tid / 16][4 * (tid % 16)]) = rb;
+    __syncthreads();
+    if (k0 + BK < ke) fetch(k0 + BK);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float* c = C + (size_t)(bm + ty + 16 * i) * ldc + bn + tx + 16 * j;
-      *c = beta == 0.0f ? alpha * acc[i][j] : alpha * acc[i][j] + beta * *c;
+    for (int k = 0; k < BK; ++k) {
+      const float4 a = *reinterpret_cast<const float4*>(&As[k][4 * ty]);
+      const float4 bv = *reinterpret_cast<const float4*>(&Bs[k][4 * tx]);
+      const float av[4] = {a.x, a.y, a.z, a.w}, bw[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bw[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+}
+
+// C[bm:bm+BM, bn:bn+BN] = alpha * acc + beta * C (beta == 0 never reads C).
+__device__ __forceinline__ void gemm_store(float* C, int ldc, int bm, int bn, const float (&acc)[4][4],
+                                           float alpha, float beta) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float4* c = reinterpret_cast<float4*>(C + (size_t)(bm + 4 * ty + i) * ldc + bn + 4 * tx);
+    float4 v = make_float4(alpha * acc[i][0], alpha * acc[i][1], alpha * acc[i][2], alpha * acc[i][3]);
+    if (beta != 0.0f) {
+      const float4 old = *c;
+      v = make_float4(v.x + beta * old.x, v.y + beta * old.y, v.z + beta * old.z, v.w + beta * old.w);
+    }
+    *c = v;
+  }
+}
+
+// U[t+1:, t+1:] -= U[t, t+1:]^T U[t, t+1:] over the upper 64 x 64 blocks;
+// blocks wholly below the diagonal exit at once.
+__global__ void __launch_bounds__(GEMM_THREADS) trailing_update(float* U, int b, int t0) {
+  const int bm = blockIdx.y * BM, bn = blockIdx.x * BN;
+  if (bm >= bn + BN) return;
+  const float* row = U + (size_t)t0 * b + t0 + T;
+  float acc[4][4] = {};
+  gemm_tile<true>(acc, row, b, row, b, bm, bn, 0, T);
+  gemm_store(U + (size_t)(t0 + T) * b + t0 + T, b, bm, bn, acc, -1.0f, 1.0f);
+}
+
+// One level of the inverse composition: pair z joins the diagonal blocks
+// Wu[o, o] (s x s) and Wu[o+s, o+s] (s2 x s2, s2 <= s), o = 2 s z:
+//   STEP 1: P_z = W11 U[o, o+s]        (W11 upper: k from bm)
+//   STEP 2: Wu[o, o+s] = -P_z W22      (W22 upper: k below bn + BN)
+// and STEP 2 writes Wu[o+s, o] = 0.  P_z is s x s2 with row stride s.
+template <int STEP>
+__global__ void __launch_bounds__(GEMM_THREADS)
+compose_level(const float* __restrict__ U, float* __restrict__ Wu, float* __restrict__ P, int b, int s) {
+  const int o = 2 * s * blockIdx.z;
+  const int s2 = b - o - s < s ? b - o - s : s;
+  const int bm = blockIdx.y * BM, bn = blockIdx.x * BN;
+  if (bn >= s2) return;
+  float* Pz = P + (size_t)blockIdx.z * s * s;
+  float acc[4][4] = {};
+  if (STEP == 1) {
+    gemm_tile<false>(acc, Wu + (size_t)o * b + o, b, U + (size_t)o * b + o + s, b, bm, bn, bm, s);
+    gemm_store(Pz, s, bm, bn, acc, 1.0f, 0.0f);
+  } else {
+    gemm_tile<false>(acc, Pz, s, Wu + (size_t)(o + s) * b + o + s, b, bm, bn, 0, bn + BN);
+    gemm_store(Wu + (size_t)o * b + o + s, b, bm, bn, acc, -1.0f, 0.0f);
+    for (int e = threadIdx.x; e < BN * BM / 4; e += GEMM_THREADS) {
+      const int r = e / (BM / 4), k = 4 * (e % (BM / 4));
+      *reinterpret_cast<float4*>(Wu + (size_t)(o + s + bn + r) * b + o + bm + k) =
+          make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
   }
-}
-
-__global__ void zero_strict_lower(float* __restrict__ U, int b) {
-  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= (size_t)b * b) return;
-  const int i = (int)(e / b), k = (int)(e % b);
-  if (k < i) U[e] = 0.0f;
-}
-
-cudaError_t gemm(bool trans_a, int M, int N, int K, float alpha, const float* A, int lda,
-                 const float* B, int ldb, float beta, float* C, int ldc, bool skip_lower,
-                 cudaStream_t stream) {
-  dim3 grid(N / BN, M / BM);
-  if (trans_a) {
-    gemm_f32<true><<<grid, GEMM_THREADS, 0, stream>>>(M, N, K, alpha, A, lda, B, ldb, beta, C, ldc, skip_lower);
-  } else {
-    gemm_f32<false><<<grid, GEMM_THREADS, 0, stream>>>(M, N, K, alpha, A, lda, B, ldb, beta, C, ldc, skip_lower);
-  }
-  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// A, U, Wu: (b, b) row-major f32; scratch: b * 128 floats.  All on `stream`.
+// A, U, Wu: (b, b) row-major f32; scratch: b * b floats.  All on `stream`.
 int panel_cholinv_f32(const float* A, float* U, float* Wu, float* scratch, int b, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   if (b <= 0 || b % T != 0 || b > 1024) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(tile_factor_inverse,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TILE_SMEM);
   if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(row_solve, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)RS_SMEM);
+  if (err != cudaSuccess) return (int)err;
   err = cudaMemcpyAsync(U, A, (size_t)b * b * sizeof(float), cudaMemcpyDeviceToDevice, stream);
   if (err != cudaSuccess) return (int)err;
-  err = cudaMemsetAsync(Wu, 0, (size_t)b * b * sizeof(float), stream);
-  if (err != cudaSuccess) return (int)err;
 
-  const int tiles = b / T;
-  for (int t = 0; t < tiles; ++t) {
-    const int t0 = t * T;
+  for (int t0 = 0; t0 < b; t0 += T) {
     tile_factor_inverse<<<1, TILE_THREADS, TILE_SMEM, stream>>>(U, Wu, b, t0);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     const int w = b - t0 - T;  // width of the tile row right of the diagonal
     if (w == 0) break;
-    float* row = U + (size_t)t0 * b + t0 + T;  // U[t, t+1:], (T, w) with ld b
-    // U[t, t+1:] = Wu[t,t]^T U[t, t+1:], via scratch (T, w) to avoid aliasing
-    err = gemm(true, T, w, T, 1.0f, Wu + (size_t)t0 * b + t0, b, row, b, 0.0f, scratch, w, false, stream);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaMemcpy2DAsync(row, (size_t)b * sizeof(float), scratch, (size_t)w * sizeof(float),
-                            (size_t)w * sizeof(float), T, cudaMemcpyDeviceToDevice, stream);
-    if (err != cudaSuccess) return (int)err;
-    // U[t+1:, t+1:] -= U[t, t+1:]^T U[t, t+1:]  (upper tiles only)
-    float* trail = U + (size_t)(t0 + T) * b + t0 + T;
-    err = gemm(true, w, w, T, -1.0f, row, b, row, b, 1.0f, trail, b, true, stream);
-    if (err != cudaSuccess) return (int)err;
+    row_solve<<<w / RS_BN, RS_THREADS, RS_SMEM, stream>>>(U, Wu, b, t0);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    trailing_update<<<dim3(w / BN, w / BM), GEMM_THREADS, 0, stream>>>(U, b, t0);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-  // Wu[:r0, r] = -(Wu[:r0, :r0] U[:r0, r]) Wu[r, r]; Wu's unwritten lower
-  // tiles are zero, so the full-width product only adds exact zeros.
-  for (int r = 1; r < tiles; ++r) {
-    const int r0 = r * T;
-    err = gemm(false, r0, T, r0, 1.0f, Wu, b, U + r0, b, 0.0f, scratch, T, false, stream);
-    if (err != cudaSuccess) return (int)err;
-    err = gemm(false, r0, T, T, -1.0f, scratch, T, Wu + (size_t)r0 * b + r0, b, 0.0f, Wu + r0, b, false, stream);
-    if (err != cudaSuccess) return (int)err;
+  for (int s = T; s < b; s *= 2) {
+    const dim3 grid(s / BN, s / BM, (b - s + 2 * s - 1) / (2 * s));  // pairs with o + s < b
+    compose_level<1><<<grid, GEMM_THREADS, 0, stream>>>(U, Wu, scratch, b, s);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    compose_level<2><<<grid, GEMM_THREADS, 0, stream>>>(U, Wu, scratch, b, s);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-  const size_t total = (size_t)b * b;
-  zero_strict_lower<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(U, b);
-  return (int)cudaGetLastError();
+  return (int)cudaSuccess;
 }
 
 const char* kernel_error_string(int code) {

@@ -34,7 +34,7 @@ def _launch(A: torch.Tensor):
     b = A.shape[0]
     U = torch.empty_like(A)
     Wu = torch.empty_like(A)
-    scratch = torch.empty(b * _T, dtype=A.dtype, device=A.device)
+    scratch = torch.empty(b * b, dtype=A.dtype, device=A.device)  # the inverse's products
     fn = lib.panel_cholinv_f32
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]

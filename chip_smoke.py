@@ -81,9 +81,11 @@ def fail(message: str) -> None:
     raise RuntimeError(f"chip_smoke check failed: {message}")
 
 
-def cuda_ms(torch, fn, reps: int = REPS) -> float:
-    """Median milliseconds of ``fn`` on the card (CUDA events), after one
-    warm-up call."""
+def cuda_ms(torch, fn, reps: int = REPS, batch: int = 10) -> float:
+    """Median milliseconds per call of ``fn`` on the card, after one warm-up
+    call: CUDA events around ``batch`` back-to-back calls, ``reps`` times.
+    The batch keeps the card busy, so a call made of many short launches
+    is timed on the device, not by the host's launch rate."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -91,10 +93,11 @@ def cuda_ms(torch, fn, reps: int = REPS) -> float:
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         stop.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop))
+        times.append(start.elapsed_time(stop) / batch)
     return statistics.median(times)
 
 

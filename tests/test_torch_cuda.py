@@ -106,16 +106,18 @@ def test_panel_kernel_guards_and_nan(cuda):
     assert torch.isnan(U).any()
 
 
-def test_panel_kernel_nan_in_last_sub_block(cuda):
-    """A non-SPD pivot at 1000 of b = 1024 lies in the last 32-wide
-    sub-panel of the last 128-tile: the NaN still surfaces in U and Wu."""
+@pytest.mark.parametrize("pivot", [370, 1000])
+def test_panel_kernel_nan_in_last_sub_block(cuda, pivot):
+    """A non-SPD pivot in the last 32-wide sub-panel of a non-first 128-tile
+    (tile 2, and the last tile, of b = 1024): the NaN surfaces from the
+    pivot on, in U and Wu, and the rows and columns before it stay finite."""
     g = torch.Generator().manual_seed(7)
     M = torch.randn((1024, 1024), generator=g, dtype=torch.float64)
     A = (M @ M.T + 1024 * torch.eye(1024, dtype=torch.float64)).float().to(cuda)
-    A[1000, 1000] = -1.0
+    A[pivot, pivot] = -1.0
     U, Wu = panel_cholinv(A)
-    assert torch.isnan(U[1000:, 1000:]).any() and torch.isnan(Wu).any()
-    assert torch.isfinite(U[:1000, :1000]).all()
+    assert torch.isnan(U[pivot, pivot]) and torch.isnan(Wu[pivot, pivot])
+    assert torch.isfinite(U[:pivot]).all() and torch.isfinite(Wu[:pivot, :pivot]).all()
 
 
 def test_panel_kernel_on_main_path_panel(cuda):
