@@ -182,7 +182,9 @@ __device__ __noinline__ void warp_factor_invert(float* D, float* X, int lane) {
   float p = __shfl_sync(FULL, a[0], 0);
 #pragma unroll
   for (int k = 0; k < SB; ++k) {
-    float r;  // 1 / sqrt(p), NaN for p < 0 (a pivot is never subnormal)
+    // 1 / sqrt(p): NaN for p < 0; a subnormal pivot (a panel singular in
+    // f32) is flushed to 0 and, like a zero pivot, gives inf and NaN
+    float r;
     asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(p));
     a[k] = lane == k ? p * r : a[k] * r;  // row k of U
     // L^-1[k][j] is 0 above the diagonal: setting it (not scaling it)
