@@ -76,8 +76,9 @@ def test_gram_kernel_rejects_bad_inputs(cuda):
         radial_gram(X.T, X.T, 1.0, 1.0)
 
 
-# 384 and 768 are panel sizes that cuda_block_size picks (n = 2304, 3072 ...)
-@pytest.mark.parametrize("b", [128, 256, 384, 512, 768, 1024])
+# every panel size cuda_block_size can pick; with 3, 5, 6 and 7 tiles the
+# log-depth inverse composition pairs blocks of unequal size
+@pytest.mark.parametrize("b", [128, 256, 384, 512, 640, 768, 896, 1024])
 def test_panel_kernel_matches_f64(cuda, b):
     g = torch.Generator().manual_seed(b)
     M = torch.randn((b, b), generator=g, dtype=torch.float64)
