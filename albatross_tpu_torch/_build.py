@@ -35,7 +35,8 @@ LAUNCHES: dict[str, int] = {"radial_gram": 0, "radial_gram_diag": 0, "panel_chol
 
 # kernel source name -> (library, build seconds, compiler log)
 _LOADED: dict[str, tuple[ctypes.CDLL, float, str]] = {}
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()  # guards _NAME_LOCKS
+_NAME_LOCKS: dict[str, threading.Lock] = {}
 
 
 def reset_launch_counts() -> None:
@@ -59,10 +60,14 @@ def _nvcc() -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The compiled library of ``csrc/<name>.cu``, built on first use."""
+    """The compiled library of ``csrc/<name>.cu``, built on first use.
+    Different kernels may be loaded from several threads at once: each
+    ``nvcc`` runs under its own kernel's lock."""
     with _LOCK:
+        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name not in _LOADED:
-            _LOADED[name] = _build(name)
+            _LOADED[name] = compile_source(PACKAGE_DIR / "csrc" / f"{name}.cu")
         return _LOADED[name][0]
 
 
@@ -75,17 +80,20 @@ def build_info(name: str) -> tuple[float, str]:
     return seconds, log
 
 
-def _build(name: str) -> tuple[ctypes.CDLL, float, str]:
-    source = PACKAGE_DIR / "csrc" / f"{name}.cu"
+def compile_source(source: Path) -> tuple[ctypes.CDLL, float, str]:
+    """Build one ``.cu`` file into ``BUILD_DIR`` (unless a library of the
+    same source and flags is there) and load it: (library, build seconds,
+    compiler log)."""
+    source = Path(source)
     digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib_path = BUILD_DIR / f"{name}-{digest[:16]}.so"
+    lib_path = BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
     log_path = lib_path.with_suffix(".log")
     seconds = 0.0
     if lib_path.exists():
         log = log_path.read_text() if log_path.exists() else ""
     else:
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        tmp = lib_path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         start = time.perf_counter()
         proc = subprocess.run(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],

@@ -23,12 +23,10 @@ torch.set_float32_matmul_precision("highest")
 def device(name: str | torch.device | None = None) -> torch.device:
     """Resolve a device request.
 
-    ``None`` picks ``cuda`` when a GPU is present and ``cpu`` otherwise.  An
-    explicit CUDA request without a GPU raises: nothing falls back to the
-    CPU behind the caller's back."""
-    if name is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    dev = torch.device(name)
+    ``None`` means the card: ``cuda``.  A CUDA request without a GPU raises;
+    the CPU is used only when the caller asks for it (``"cpu"``, or CPU
+    tensors), never as a fallback behind the caller's back."""
+    dev = torch.device("cuda" if name is None else name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {dev} was requested but torch.cuda.is_available() is False"

@@ -43,12 +43,15 @@ class RegressionDataset:
     ) -> "RegressionDataset":
         """Build from raw arrays; ``targets`` may be a mean vector.
 
-        ``device``/``dtype`` (default: those of ``features``) place the
-        features and targets together."""
+        ``device``/``dtype`` place the features and targets together.  By
+        default a tensor keeps its device and dtype; other features (numpy
+        arrays, lists) go to the card, ``config.device(None)``, and keep
+        their dtype."""
         from .. import config
 
+        keep = device is None and isinstance(features, torch.Tensor)
+        dev = features.device if keep else config.device(device)
         features = torch.as_tensor(features)
-        dev = features.device if device is None else config.device(device)
         dt = features.dtype if dtype is None else dtype
         features = features.to(device=dev, dtype=dt)
         if not isinstance(targets, MarginalDistribution):

@@ -10,13 +10,34 @@
 // for the squared-exponential, exponential, Matern 3/2 and Matern 5/2
 // profiles, in the expression order of pallas_gram.py _apply_profile.
 //
-// What bounds it on an H100: the (N, M) output.  At N = M = 28672 in f32
-// that is 3.3 GB written once (about 1 ms at 3.35 TB/s); the distance work
-// is D subtract-multiply-adds and one exp per element, far below the FP32
-// rate for the small D of the main path.  The design therefore writes each
-// output element exactly once, coalesced (a warp writes 32 consecutive
-// columns), and reads X and Y through shared-memory tiles so each feature
-// row is fetched from device memory once per block, not once per element.
+// What bounds it on an H100: writing the (N, M) output.  At N = M = 28672
+// in f32 that is 3.29 GB, 0.98 ms at 3.35 TB/s; X and Y (115 KB at D = 1)
+// stay in L2.  The arithmetic is close behind: about 25-30 instructions an
+// element at D = 1 (the IEEE division and the precise exp dominate) is
+// ~0.7 ms of issue over 822 M elements, so it has to overlap the stores.
+//
+// Design:
+// * Large tiles, few barriers.  A block of 8 warps makes a 64 x 128 tile:
+//   warp w owns rows 8w..8w+7, each thread 4 columns of each of those rows,
+//   so a thread makes 32 outputs from registers and a warp writes 512
+//   contiguous bytes of a row per store.  The grid is one-dimensional over
+//   tiles (row-major), so no grid dimension limits the rows.
+// * Wide stores.  Where every row starts 16-byte aligned (m a multiple of
+//   the vector width, 4 in f32 and 2 in f64) a thread owns 4 consecutive
+//   columns and stores them as one float4 (two double2 in f64); the
+//   ragged last tile stores whole vectors or nothing.  Otherwise a thread
+//   owns columns lane + 32c and stores scalars, each warp store a 128-byte
+//   coalesced row segment.  Nothing is padded.
+// * No staging at small D.  For D <= 4 each thread reads its rows' x and
+//   its columns' y straight from global memory (L1/L2) into registers: no
+//   shared memory and no barrier.  For larger D, chunks of 16 features of
+//   the tile's 64 rows and 128 columns go through shared memory (two
+//   barriers a chunk), read back as broadcasts and 16-byte vectors.
+//
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W: 1.07 ms
+// for the 28672^2 training covariance (a fill_ of the same buffer, the
+// card's practical write floor, takes 1.00 ms), 0.16 ms for the (28672,
+// 4096) cross covariance (floor 0.146 ms).
 //
 // Deliberate difference from the TPU kernel: squared distances are exact
 // elementwise sums (x_k - y_k)^2 at every D.  The TPU kernel uses a centred
@@ -25,20 +46,25 @@
 // is more accurate.  A tensor-core contraction for large D is later work.
 //
 // Symmetry: out[i, j] and out[j, i] see (x - y) and (y - x) = -(x - y)
-// exactly, the same squares, summed in the same order with round-to-nearest
+// exactly, the same squares, summed in ascending k with round-to-nearest
 // intrinsics (no FMA contraction), so K(X, X) is bitwise symmetric and
-// k(x, x) = sigma^2 exactly -- the factorization relies on both.
-//
-// Ragged edges are masked in the kernel; nothing is padded.
+// k(x, x) = sigma^2 exactly -- the factorization relies on both.  The
+// diagonal is added only where i == j, tested only in tiles that meet it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TILE = 32;      // output tile edge
-constexpr int ROWS_PER = 4;   // output rows per thread (block = 32 x 8)
-constexpr int DCHUNK = 16;    // feature dims staged per shared-memory pass
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+constexpr int ROWS = 8;              // rows per thread (all of its warp's rows)
+constexpr int COLS = 4;              // columns per thread
+constexpr int BM = WARPS * ROWS;     // 64 tile rows
+constexpr int BN = 32 * COLS;        // 128 tile columns
+constexpr int SMALL_D = 4;           // up to this D, no shared-memory stage
+constexpr int DCHUNK = 16;           // feature dims staged per pass above it
+constexpr int PAD = 4;               // keeps staged rows 16-byte aligned
 
 enum Profile { SQUARED_EXPONENTIAL = 0, EXPONENTIAL = 1, MATERN_32 = 2, MATERN_52 = 3 };
 
@@ -50,6 +76,21 @@ __device__ __forceinline__ float exp_(float a) { return expf(a); }
 __device__ __forceinline__ double exp_(double a) { return exp(a); }
 __device__ __forceinline__ float sqrt_(float a) { return sqrtf(a); }
 __device__ __forceinline__ double sqrt_(double a) { return sqrt(a); }
+
+// One 16-byte store of consecutive elements.
+template <typename T> struct Vec;
+template <> struct Vec<float> {
+  static constexpr int N = 4;
+  __device__ __forceinline__ static void store(float* p, const float* v) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+template <> struct Vec<double> {
+  static constexpr int N = 2;
+  __device__ __forceinline__ static void store(double* p, const double* v) {
+    *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+  }
+};
 
 // Same operation order as pallas_gram.py _apply_profile (s2 = sigma*sigma).
 template <typename T, int P>
@@ -71,79 +112,138 @@ __device__ __forceinline__ T apply_profile(T d2, T ls, T s2) {
   return mul_rn(mul_rn(s2, poly), exp_(-s5));
 }
 
-template <typename T, int P>
-__global__ void radial_gram_kernel(const T* __restrict__ X, const T* __restrict__ Y,
-                                   const T* __restrict__ diag, T* __restrict__ out,
-                                   int64_t n, int64_t m, int d, T ls, T sigma) {
-  __shared__ T xs[TILE][DCHUNK + 1];
-  __shared__ T ys[TILE][DCHUNK + 1];
-  const int tx = threadIdx.x;              // column within the tile
-  const int ty = threadIdx.y;              // row group within the tile
-  const int64_t row0 = (int64_t)blockIdx.y * TILE;
-  const int64_t col0 = (int64_t)blockIdx.x * TILE;
-  const int tid = ty * blockDim.x + tx;
-  const int nthreads = blockDim.x * blockDim.y;
+// Column offset within the tile of a thread's c-th column.
+template <bool VEC>
+__device__ __forceinline__ int tile_col(int lane, int c) {
+  return VEC ? COLS * lane + c : lane + 32 * c;
+}
 
-  T acc[ROWS_PER];
+// acc[r][c] += (x_k - y_k)^2 over one feature k, in ascending k.
+template <typename T>
+__device__ __forceinline__ void accumulate(T (&acc)[ROWS][COLS], const T (&xv)[ROWS], const T (&yv)[COLS]) {
 #pragma unroll
-  for (int r = 0; r < ROWS_PER; ++r) acc[r] = T(0);
-
-  for (int k0 = 0; k0 < d; k0 += DCHUNK) {
-    const int kc = min(DCHUNK, d - k0);
-    for (int e = tid; e < TILE * DCHUNK; e += nthreads) {
-      const int r = e / DCHUNK, k = e % DCHUNK;
-      const int64_t xi = row0 + r, yj = col0 + r;
-      xs[r][k] = (k < kc && xi < n) ? X[xi * d + k0 + k] : T(0);
-      ys[r][k] = (k < kc && yj < m) ? Y[yj * d + k0 + k] : T(0);
+  for (int r = 0; r < ROWS; ++r) {
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) {
+      const T diff = xv[r] - yv[c];
+      acc[r][c] = add_rn(acc[r][c], mul_rn(diff, diff));
     }
-    __syncthreads();
-    for (int k = 0; k < kc; ++k) {
-      const T yv = ys[tx][k];
+  }
+}
+
+template <typename T, int P, bool VEC, bool STAGED>
+__global__ void __launch_bounds__(THREADS)
+radial_gram_kernel(const T* __restrict__ X, const T* __restrict__ Y, const T* __restrict__ diag,
+                   T* __restrict__ out, int64_t n, int64_t m, int d, int64_t col_tiles, T ls,
+                   T sigma) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t row0 = (int64_t)(blockIdx.x / col_tiles) * BM;
+  const int64_t col0 = (int64_t)(blockIdx.x % col_tiles) * BN;
+  const int64_t i0 = row0 + warp * ROWS;  // this thread's first row
+
+  T acc[ROWS][COLS];
 #pragma unroll
-      for (int r = 0; r < ROWS_PER; ++r) {
-        const T diff = xs[ty + r * (TILE / ROWS_PER)][k] - yv;
-        acc[r] = add_rn(acc[r], mul_rn(diff, diff));
+  for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) acc[r][c] = T(0);
+
+  if (!STAGED) {
+    for (int k = 0; k < d; ++k) {
+      T xv[ROWS], yv[COLS];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) xv[r] = i0 + r < n ? X[(i0 + r) * d + k] : T(0);
+#pragma unroll
+      for (int c = 0; c < COLS; ++c) {
+        const int64_t j = col0 + tile_col<VEC>(lane, c);
+        yv[c] = j < m ? Y[j * d + k] : T(0);
       }
+      accumulate(acc, xv, yv);
     }
-    __syncthreads();
+  } else {
+    __shared__ __align__(16) T xs[DCHUNK][BM + PAD];
+    __shared__ __align__(16) T ys[DCHUNK][BN + PAD];
+    for (int k0 = 0; k0 < d; k0 += DCHUNK) {
+      const int kc = min(DCHUNK, d - k0);
+      for (int e = threadIdx.x; e < BM * DCHUNK; e += THREADS) {
+        const int r = e / DCHUNK, k = e % DCHUNK;
+        xs[k][r] = (k < kc && row0 + r < n) ? X[(row0 + r) * d + k0 + k] : T(0);
+      }
+      for (int e = threadIdx.x; e < BN * DCHUNK; e += THREADS) {
+        const int c = e / DCHUNK, k = e % DCHUNK;
+        ys[k][c] = (k < kc && col0 + c < m) ? Y[(col0 + c) * d + k0 + k] : T(0);
+      }
+      __syncthreads();
+      for (int k = 0; k < kc; ++k) {
+        T xv[ROWS], yv[COLS];
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) xv[r] = xs[k][warp * ROWS + r];
+#pragma unroll
+        for (int c = 0; c < COLS; ++c) yv[c] = ys[k][tile_col<VEC>(lane, c)];
+        accumulate(acc, xv, yv);
+      }
+      __syncthreads();
+    }
   }
 
   const T s2 = mul_rn(sigma, sigma);
-  const int64_t j = col0 + tx;
-  if (j >= m) return;
+  const bool meets_diag = diag != nullptr && row0 < col0 + BN && col0 < row0 + BM;
 #pragma unroll
-  for (int r = 0; r < ROWS_PER; ++r) {
-    const int64_t i = row0 + ty + r * (TILE / ROWS_PER);
-    if (i >= n) continue;
-    T v = apply_profile<T, P>(acc[r], ls, s2);
-    if (diag != nullptr && i == j) v = add_rn(v, diag[i]);
-    out[i * m + j] = v;
+  for (int r = 0; r < ROWS; ++r) {
+    const int64_t i = i0 + r;
+    if (i >= n) break;
+    T v[COLS];
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) v[c] = apply_profile<T, P>(acc[r][c], ls, s2);
+    if (meets_diag) {
+#pragma unroll
+      for (int c = 0; c < COLS; ++c)
+        if (i == col0 + tile_col<VEC>(lane, c)) v[c] = add_rn(v[c], diag[i]);
+    }
+    T* row = out + i * m + col0;
+    if (VEC) {
+#pragma unroll
+      for (int c = 0; c < COLS; c += Vec<T>::N)
+        if (col0 + tile_col<VEC>(lane, c) < m) Vec<T>::store(row + tile_col<VEC>(lane, c), v + c);
+    } else {
+#pragma unroll
+      for (int c = 0; c < COLS; ++c)
+        if (col0 + tile_col<VEC>(lane, c) < m) row[tile_col<VEC>(lane, c)] = v[c];
+    }
   }
+}
+
+template <typename T, int P>
+int launch_profile(const T* X, const T* Y, const T* diag, T* out, int64_t n, int64_t m, int d,
+                   T ls, T sigma, cudaStream_t stream) {
+  const int64_t col_tiles = (m + BN - 1) / BN;
+  const int64_t tiles = (n + BM - 1) / BM * col_tiles;
+  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;  // grid.x limit
+  // Vector stores need every row to start 16-byte aligned.
+  const bool vec = m % Vec<T>::N == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const bool staged = d > SMALL_D;
+  auto kernel = vec ? (staged ? &radial_gram_kernel<T, P, true, true> : &radial_gram_kernel<T, P, true, false>)
+                    : (staged ? &radial_gram_kernel<T, P, false, true> : &radial_gram_kernel<T, P, false, false>);
+  kernel<<<(unsigned)tiles, THREADS, 0, stream>>>(X, Y, diag, out, n, m, d, col_tiles, ls, sigma);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const T* X, const T* Y, const T* diag, T* out, int64_t n, int64_t m,
            int d, T ls, T sigma, int profile, cudaStream_t stream) {
   if (n <= 0 || m <= 0) return (int)cudaSuccess;
-  dim3 block(TILE, TILE / ROWS_PER);
-  dim3 grid((unsigned)((m + TILE - 1) / TILE), (unsigned)((n + TILE - 1) / TILE));
   switch (profile) {
     case SQUARED_EXPONENTIAL:
-      radial_gram_kernel<T, SQUARED_EXPONENTIAL><<<grid, block, 0, stream>>>(X, Y, diag, out, n, m, d, ls, sigma);
-      break;
+      return launch_profile<T, SQUARED_EXPONENTIAL>(X, Y, diag, out, n, m, d, ls, sigma, stream);
     case EXPONENTIAL:
-      radial_gram_kernel<T, EXPONENTIAL><<<grid, block, 0, stream>>>(X, Y, diag, out, n, m, d, ls, sigma);
-      break;
+      return launch_profile<T, EXPONENTIAL>(X, Y, diag, out, n, m, d, ls, sigma, stream);
     case MATERN_32:
-      radial_gram_kernel<T, MATERN_32><<<grid, block, 0, stream>>>(X, Y, diag, out, n, m, d, ls, sigma);
-      break;
+      return launch_profile<T, MATERN_32>(X, Y, diag, out, n, m, d, ls, sigma, stream);
     case MATERN_52:
-      radial_gram_kernel<T, MATERN_52><<<grid, block, 0, stream>>>(X, Y, diag, out, n, m, d, ls, sigma);
-      break;
+      return launch_profile<T, MATERN_52>(X, Y, diag, out, n, m, d, ls, sigma, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace

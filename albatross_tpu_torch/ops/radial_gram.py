@@ -25,8 +25,6 @@ from ..kernels.distances import as_matrix
 
 PROFILES = ("squared_exponential", "exponential", "matern_32", "matern_52")
 _PROFILE_ID = {p: i for i, p in enumerate(PROFILES)}
-_MAX_ROW_TILES = 65535  # CUDA grid.y limit; rows are tiled by 32
-_TILE = 32
 # bound on the plain version's (rows, M, D) difference tensor
 _PLAIN_CHUNK_ELEMENTS = 1 << 25
 
@@ -75,8 +73,10 @@ def plain_radial_gram(X, Y, length_scale, sigma, profile: str, diag_add=None):
     return out
 
 
-def _launch(X, Y, length_scale: float, sigma: float, diag, profile: str):
-    lib = _build.load("radial_gram")
+def call_library(lib, X, Y, length_scale: float, sigma: float, diag, profile: str):
+    """Launch the ``radial_gram_f32`` / ``radial_gram_f64`` entry of a loaded
+    kernel library on X's current stream: (output, CUDA error code).  Counts
+    nothing and checks nothing: ``_launch`` does both."""
     n, d = X.shape
     m = Y.shape[0]
     out = torch.empty((n, m), dtype=X.dtype, device=X.device)
@@ -95,6 +95,12 @@ def _launch(X, Y, length_scale: float, sigma: float, diag, profile: str):
         X.data_ptr(), Y.data_ptr(), None if diag is None else diag.data_ptr(),
         out.data_ptr(), n, m, d, length_scale, sigma, _PROFILE_ID[profile], stream,
     )
+    return out, code
+
+
+def _launch(X, Y, length_scale: float, sigma: float, diag, profile: str):
+    lib = _build.load("radial_gram")
+    out, code = call_library(lib, X, Y, length_scale, sigma, diag, profile)
     _build.count_launch("radial_gram" if diag is None else "radial_gram_diag")
     _build.check(lib, code, "radial_gram kernel")
     return out
@@ -137,8 +143,6 @@ def _check_cuda_inputs(X, Y, diag):
         raise ValueError(f"radial_gram: feature dims differ ({X.shape[1]} vs {Y.shape[1]})")
     if not (X.is_contiguous() and Y.is_contiguous()):
         raise ValueError("radial_gram kernel needs contiguous X and Y")
-    if -(-X.shape[0] // _TILE) > _MAX_ROW_TILES:
-        raise ValueError(f"radial_gram kernel takes at most {_MAX_ROW_TILES * _TILE} rows of X")
     if diag is not None:
         if diag.device != X.device or diag.dtype != X.dtype or diag.shape != (X.shape[0],):
             raise ValueError("radial_gram: diag_add must be an (N,) tensor of X's dtype and device")

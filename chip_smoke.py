@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's exact-GP main path once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--against RADIAL_GRAM_CU]
 
 Builds the hand-written CUDA kernels from ``albatross_tpu_torch/csrc``,
 holds each against its plain PyTorch version on the card at the main
@@ -13,8 +13,14 @@ against an f64 plain-PyTorch reference on the card and that every kernel
 of the path was launched, and times it.  A short f64 phase at N = 3072
 checks that f64 on the card factors its panels as the JAX package does
 (torch.linalg.cholesky + blocked_tri_inverse, no panel-kernel launch) and
-matches the CPU.  Any failed check raises.
+matches the CPU.  Any failed check raises.  Each kernel's time is printed
+beside its bound (the least time the card could take for the same work);
+the gram kernels also beside the card's write floor, a ``fill_`` of a
+buffer of the gram's shape.
 ``--profile`` adds a torch.profiler breakdown of one NLML's device time.
+``--against`` builds another version of ``radial_gram.cu`` (an earlier
+commit's, say) and times it in turns against this one: theirs, ours, ours,
+theirs, at the main path's gram shapes, at D = 16 and in f64.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -27,10 +33,12 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 N = 28672          # training points (the bench model's size)
@@ -40,6 +48,11 @@ LENGTH_SCALE, SIGMA, NOISE, JITTER = 0.5, 1.0, 0.3, 1e-4
 PANELS = 28        # N / 1024: the CUDA panel size at N = 28672
 N_F64 = 3072       # the f64 phase: three panels of 1024
 REPS = 5
+# NVIDIA's data sheet for the H100 SXM: device memory rate, and the FP32
+# rate outside the tensor cores (the panel kernel and the grams use no
+# tensor cores).
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
 
 # Tolerances, with their reasons:
 # f32 gram vs its plain version: both compute d^2 exactly; they differ only
@@ -75,6 +88,38 @@ SOURCES = {
 def nlml_flops(n: int) -> float:
     """bench.py's count: Cholesky n^3/3 + whitening n^2 + gram 8 n^2."""
     return n**3 / 3.0 + n * n + 8.0 * n * n
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """(least milliseconds on the card, what bounds it): the larger of the
+    bytes over the memory rate and the FP32 operations over their rate."""
+    by_bytes, by_flops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return max(by_bytes, by_flops) * 1e3, "bytes" if by_bytes >= by_flops else "operations"
+
+
+def gram_bound(n: int, m: int, d: int, itemsize: int, square: bool, diag: bool) -> tuple[float, str]:
+    """Bound of an (n, m) radial gram: X, and Y unless it is X, and the
+    diagonal read once, the output written once; a lower count of its
+    operations, 3 a feature and 4 for the profile (divide, negate, exp,
+    scale) an element."""
+    nbytes = itemsize * (n * m + n * d + (0 if square else m * d) + (n if diag else 0))
+    return bound(nbytes, n * m * (3 * d + 4))
+
+
+def panel_bound(b: int) -> tuple[float, str]:
+    """Bound of the f32 panel factor + inverse at block size b: b^2 read,
+    2 b^2 written; 2 b^3 / 3 FLOP (b^3 / 3 for the factor, as much for the
+    inverse)."""
+    return bound(4 * 3 * b * b, 2 * b**3 / 3)
+
+
+def ptxas_summary(log: str) -> str:
+    """Kernel count, register range and spill bytes from ``-Xptxas -v``."""
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+    spilled = sum(int(b) for b in re.findall(r"(\d+) bytes spill (?:stores|loads)", log))
+    if not regs:
+        return "no ptxas report"
+    return f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers a thread, {spilled} bytes spilled"
 
 
 def fail(message: str) -> None:
@@ -145,7 +190,7 @@ def check_f64_path(torch, np, pt, _build, model) -> None:
     pred = model.fit(on_gpu).predict(torch.as_tensor(xs, device="cuda")).marginal()
     torch.cuda.synchronize()
     launches = _build.LAUNCHES["panel_cholinv"]
-    on_cpu = pt.RegressionDataset.create(x, y, dtype=torch.float64)
+    on_cpu = pt.RegressionDataset.create(x, y, device="cpu", dtype=torch.float64)
     ll_ref = model.log_likelihood(on_cpu).item()
     ref = model.fit(on_cpu).predict(torch.as_tensor(xs)).marginal()
     rel = abs(ll - ll_ref) / abs(ll_ref)
@@ -160,10 +205,36 @@ def check_f64_path(torch, np, pt, _build, model) -> None:
         fail(f"an f64 factorization launched the f32 panel kernel {launches} times")
 
 
+def compare_gram_sources(torch, source: Path, cases, card: str) -> None:
+    """Time the gram kernel of another ``radial_gram.cu`` (built into the
+    same build directory) against this one on the same inputs, in turns:
+    theirs, ours, ours, theirs.  Each pair of outputs must be bitwise
+    equal: both compute the same expression in the same order."""
+    from albatross_tpu_torch import _build
+    from albatross_tpu_torch.ops.radial_gram import call_library
+
+    theirs, seconds, log = _build.compile_source(source)
+    ours = _build.load("radial_gram")
+    print(f"--against {source}: built in {seconds:.1f} s; {ptxas_summary(log)}")
+    for label, X, Y, ls, sigma, profile, diag in cases:
+        def run(lib):
+            out, code = call_library(lib, X, Y, ls, sigma, diag, profile)
+            _build.check(lib, code, f"radial_gram ({label})")
+            return out
+
+        if not torch.equal(run(theirs), run(ours)):
+            fail(f"--against: the two gram kernels differ at {label}")
+        times = [cuda_ms(torch, lambda lib=lib: run(lib)) for lib in (theirs, ours, ours, theirs)]
+        print(f"[{card}] gram {label}: theirs {times[0]:.4f} / {times[3]:.4f} ms, "
+              f"ours {times[1]:.4f} / {times[2]:.4f} ms (theirs, ours, ours, theirs; outputs bitwise equal)")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="also print a torch.profiler breakdown of the NLML's device time")
+    parser.add_argument("--against", metavar="RADIAL_GRAM_CU", type=Path,
+                        help="also time the gram kernel of this radial_gram.cu in turns against the repo's")
     args = parser.parse_args()
     import torch
 
@@ -191,13 +262,13 @@ def main() -> int:
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
-    # -- build -------------------------------------------------------------
+    # -- build: one nvcc for each source, all started together --------------
     t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(_build.KERNELS)) as pool:
+        list(pool.map(_build.load, _build.KERNELS))
     for name in _build.KERNELS:
-        _build.load(name)
         seconds, log = _build.build_info(name)
-        ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-        print(f"build {name}: {seconds:.1f} s; " + " | ".join(ptxas))
+        print(f"build {name}: {seconds:.1f} s; {ptxas_summary(log)}")
     print(f"kernel build total: {time.perf_counter() - t0:.1f} s")
 
     rng = np.random.default_rng(SEED)
@@ -314,7 +385,9 @@ def main() -> int:
         pt.IndependentNoise(NOISE, assume_unique=True)
     )
     model = pt.gp_from_covariance(kernel, jitter=JITTER)
-    data = pt.RegressionDataset.create(x_np, y_np, device="cuda", dtype=torch.float32)
+    data = pt.RegressionDataset.create(x_np, y_np, dtype=torch.float32)  # the card by default
+    if not data.features.is_cuda:
+        fail(f"numpy data without a device landed on {data.features.device}, not the card")
 
     _build.reset_launch_counts()
     ll = model.log_likelihood(data)
@@ -413,22 +486,59 @@ def main() -> int:
     results["radial_gram"]["plain_ms"] = cuda_ms(torch, lambda: plain_radial_gram(x, xs, LENGTH_SCALE, SIGMA, profile))
     results["panel_cholinv"]["ms"] = cuda_ms(torch, lambda: panel_cholinv(A))
     results["panel_cholinv"]["plain_ms"] = cuda_ms(torch, lambda: plain_panel_cholinv(A))
+    for name, (ms, by) in (("radial_gram_diag", gram_bound(N, N, 1, 4, square=True, diag=True)),
+                           ("radial_gram", gram_bound(N, N_TEST, 1, 4, square=False, diag=False)),
+                           ("panel_cholinv", panel_bound(A.shape[0]))):
+        results[name]["bound_ms"], results[name]["bound_by"] = ms, by
     for name, r in results.items():
-        print(f"[{card}] {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+        print(f"[{card}] {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bound_ms'] / r['ms']:.1%} of it)")
+    # the card's write floor: a write-only fill of a buffer of each gram's shape
+    for name, cols in (("radial_gram_diag", N), ("radial_gram", N_TEST)):
+        r = results[name]
+        buf = torch.empty((N, cols), dtype=torch.float32, device=dev)
+        r["write_floor_ms"] = cuda_ms(torch, lambda: buf.fill_(0.5))
+        del buf
+        written = 4 * N * cols
+        print(f"[{card}] {name} ({N}, {cols}) f32: {written / r['ms'] / 1e9:.3f} TB/s written, "
+              f"{r['bound_ms'] / r['ms']:.1%} of the {HBM_BYTES_PER_S / 1e12:.2f} TB/s bound; write floor "
+              f"(fill_) {r['write_floor_ms']:.4f} ms = {written / r['write_floor_ms'] / 1e9:.3f} TB/s")
+    X16 = (10.0 * torch.rand((N, 16), generator=g)).to(dev)
+    Y16 = (10.0 * torch.rand((N_TEST, 16), generator=g)).to(dev)
+    ms16 = cuda_ms(torch, lambda: radial_gram(X16, Y16, 3.0, 1.5, "matern_52"))
+    bound16, by16 = gram_bound(N, N_TEST, 16, 4, square=False, diag=False)
+    print(f"[{card}] radial_gram ({N}, {N_TEST}) D=16 matern_52 f32: kernel {ms16:.4f} ms, "
+          f"bound {bound16:.4f} ms by {by16} ({bound16 / ms16:.1%} of it)")
     print(f"[{card}] panel_cholinv b=128 (one tile step): kernel "
           f"{cuda_ms(torch, lambda: panel_cholinv(A128)):.4f} ms, plain "
           f"{cuda_ms(torch, lambda: plain_panel_cholinv(A128)):.4f} ms")
+    if args.against:
+        x1, xs1 = x[:, None], xs[:, None]
+        x64 = x1.double()
+        compare_gram_sources(torch, args.against, [
+            (f"+ diag ({N}, {N}) D=1 f32", x1, x1, LENGTH_SCALE, SIGMA, profile, diag),
+            (f"({N}, {N_TEST}) D=1 f32", x1, xs1, LENGTH_SCALE, SIGMA, profile, None),
+            (f"({N}, {N_TEST}) D=16 matern_52 f32", X16, Y16, 3.0, 1.5, "matern_52", None),
+            (f"+ diag ({N}, {N}) D=1 f64", x64, x64, LENGTH_SCALE, SIGMA, profile, diag.double()),
+        ], card)
+        del x64
+    del X16, Y16
     if args.profile:
         profile_nlml(torch, model, data, card)
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         r = results[name]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": path_counts[name], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
-        })
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes a radial gram or a panel factor + inverse
+        }
+        if "write_floor_ms" in r:
+            entry["write_floor_ms"] = r["write_floor_ms"]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

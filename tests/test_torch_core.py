@@ -67,7 +67,7 @@ def test_distributions():
     j = pt.JointDistribution.create(torch.zeros(2), [[1.0, 0.2], [0.2, 2.0]])
     assert torch.equal(j.marginal().variance, torch.tensor([1.0, 2.0]))
     with pytest.raises(ValueError, match="disagree"):
-        pt.RegressionDataset.create(np.zeros(3), np.zeros(4))
+        pt.RegressionDataset.create(np.zeros(3), np.zeros(4), device="cpu")
 
 
 def test_noise_contract_matches_jax():

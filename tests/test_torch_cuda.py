@@ -31,14 +31,19 @@ def cuda():
     return torch.device("cuda")
 
 
+# (n, m): m % 4 = 1, 2, 3 and 0 with n not a multiple of the 64-row tile
+# (the vector and the scalar store paths, ragged last tiles), and a gram
+# smaller than one 64 x 128 tile; K(X, X) spans several tiles except there.
+@pytest.mark.parametrize("shape", [(300, 141), (130, 258), (333, 4099), (200, 256), (5, 3)])
 @pytest.mark.parametrize("profile", PROFILES)
 @pytest.mark.parametrize("d", [1, 3, 16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_gram_kernel_matches_plain(cuda, profile, d, dtype):
+def test_gram_kernel_matches_plain(cuda, profile, d, dtype, shape):
+    n, m = shape
     g = torch.Generator().manual_seed(d)
-    X = (20.0 * torch.rand((300, d), generator=g, dtype=torch.float64)).to(cuda, dtype)
-    Y = (20.0 * torch.rand((141, d), generator=g, dtype=torch.float64)).to(cuda, dtype)
-    diag = torch.rand(300, generator=g, dtype=torch.float64).to(cuda, dtype)
+    X = (20.0 * torch.rand((n, d), generator=g, dtype=torch.float64)).to(cuda, dtype)
+    Y = (20.0 * torch.rand((m, d), generator=g, dtype=torch.float64)).to(cuda, dtype)
+    diag = torch.rand(n, generator=g, dtype=torch.float64).to(cuda, dtype)
     # f64 plain reference of the same inputs
     ref = plain_radial_gram(X.double(), Y.double(), 4.0, 1.5, profile)
     got = radial_gram(X, Y, 4.0, 1.5, profile)
@@ -50,6 +55,26 @@ def test_gram_kernel_matches_plain(cuda, profile, d, dtype):
     assert torch.equal(K.diagonal(), s * s + diag)
     ref_diag = plain_radial_gram(X.double(), X.double(), 4.0, 1.5, profile, diag.double())
     torch.testing.assert_close(K.double(), ref_diag, rtol=0, atol=atol)
+
+
+def test_gram_kernel_rows_beyond_a_grid_dimension(cuda):
+    """More rows than 65535 tiles of 32 (one grid dimension's limit): the
+    kernel's one-dimensional grid of tiles takes them."""
+    n = 65535 * 32 + 33
+    g = torch.Generator().manual_seed(3)
+    X = (50.0 * torch.rand((n, 1), generator=g)).to(cuda)
+    for m in (8, 7):  # vector and scalar stores
+        Y = (50.0 * torch.rand((m, 1), generator=g)).to(cuda)
+        got = radial_gram(X, Y, 2.0, 1.0, "matern_52")
+        ref = plain_radial_gram(X.double(), Y.double(), 2.0, 1.0, "matern_52")
+        torch.testing.assert_close(got.double(), ref, rtol=0, atol=1e-5)
+
+
+def test_numpy_data_lands_on_the_card(cuda):
+    x = np.linspace(0.0, 1.0, 5)
+    data = pt.RegressionDataset.create(x, np.sin(x))
+    assert data.features.device.type == "cuda"
+    assert data.targets.mean.device.type == "cuda"
 
 
 def test_gram_kernel_counts_and_gradients(cuda):
@@ -172,7 +197,7 @@ def test_gp_f64_on_cuda_takes_the_jax_default_panel_path(cuda):
     f64, and never launches the f32-only panel kernel."""
     n = 3072
     model, x, y = _bench_gp(n, seed=2)
-    on_cpu = pt.RegressionDataset.create(x, y, dtype=torch.float64)
+    on_cpu = pt.RegressionDataset.create(x, y, device="cpu", dtype=torch.float64)
     on_gpu = pt.RegressionDataset.create(x, y, device="cuda", dtype=torch.float64)
     xs = np.linspace(0, 100, 333)
     _build.reset_launch_counts()
@@ -204,7 +229,7 @@ def test_gp_on_cuda_matches_cpu_f64(cuda):
         pt.IndependentNoise(0.3, assume_unique=True)
     )
     model = pt.gp_from_covariance(kernel, jitter=1e-4)
-    on_cpu = pt.RegressionDataset.create(x, y, dtype=torch.float64)
+    on_cpu = pt.RegressionDataset.create(x, y, device="cpu", dtype=torch.float64)
     on_gpu = pt.RegressionDataset.create(x, y, device="cuda", dtype=torch.float32)
     _build.reset_launch_counts()
     ll = model.log_likelihood(on_gpu).item()

@@ -38,7 +38,11 @@ def test_cuda_request_without_gpu_raises(monkeypatch):
         config.device("cuda")
     with pytest.raises(RuntimeError, match="is_available"):
         pt.RegressionDataset.create(np.zeros(3), np.zeros(3), device="cuda")
-    assert config.device(None) == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="is_available"):
+        config.device(None)
+    with pytest.raises(RuntimeError, match="is_available"):
+        pt.RegressionDataset.create(np.zeros(3), np.zeros(3))  # numpy data goes to the card
+    assert pt.RegressionDataset.create(torch.zeros(3), np.zeros(3)).targets.mean.device.type == "cpu"
     assert config.device("cpu") == torch.device("cpu")
 
 
@@ -50,7 +54,7 @@ def test_cpu_tensors_never_launch_kernels():
     y = np.sin(0.3 * x).astype(np.float32)
     kernel = pt.SquaredExponential(0.5, 1.0) + pt.measurement_only(pt.IndependentNoise(0.3, assume_unique=True))
     model = pt.gp_from_covariance(kernel, jitter=1e-4)
-    data = pt.RegressionDataset.create(x, y)
+    data = pt.RegressionDataset.create(x, y, device="cpu")
     ll = model.log_likelihood(data)
     pred = model.fit(data).predict(torch.linspace(0, 100, 50)).marginal()
     assert torch.isfinite(ll) and torch.isfinite(pred.variance).all()
