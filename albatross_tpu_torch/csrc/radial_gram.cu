@@ -14,7 +14,7 @@
 // in f32 that is 3.29 GB, 0.98 ms at 3.35 TB/s; X and Y (115 KB at D = 1)
 // stay in L2.  The arithmetic is close behind: about 25-30 instructions an
 // element at D = 1 (the IEEE division and the precise exp dominate) is
-// ~0.7 ms of issue over 822 M elements, so it has to overlap the stores.
+// ~0.7 ms of instruction throughput over 822 M elements, so it has to overlap the stores.
 //
 // Design:
 // * Large tiles, few barriers.  A block of 8 warps makes a 64 x 128 tile:
