@@ -13,8 +13,8 @@
 // What bounds it on an H100: writing the (N, M) output.  At N = M = 28672
 // in f32 that is 3.29 GB, 0.98 ms at 3.35 TB/s; X and Y (115 KB at D = 1)
 // stay in L2.  The arithmetic is close behind: about 25-30 instructions an
-// element at D = 1 (the IEEE division and the precise exp dominate) is
-// ~0.7 ms of instruction throughput over 822 M elements, so it has to overlap the stores.
+// element at D = 1 (the IEEE division and the precise exp dominate) take
+// ~0.7 ms over 822 M elements, so they have to overlap the stores.
 //
 // Design:
 // * Large tiles, few barriers.  A block of 8 warps makes a 64 x 128 tile:
