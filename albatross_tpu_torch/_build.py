@@ -35,8 +35,7 @@ LAUNCHES: dict[str, int] = {"radial_gram": 0, "radial_gram_diag": 0, "panel_chol
 
 # kernel source name -> (library, build seconds, compiler log)
 _LOADED: dict[str, tuple[ctypes.CDLL, float, str]] = {}
-_LOCK = threading.Lock()  # guards _NAME_LOCKS
-_NAME_LOCKS: dict[str, threading.Lock] = {}
+_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
@@ -60,53 +59,61 @@ def _nvcc() -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The compiled library of ``csrc/<name>.cu``, built on first use.
-    Different kernels may be loaded from several threads at once: each
-    ``nvcc`` runs under its own kernel's lock."""
+    """The compiled library of ``csrc/<name>.cu``, built on first use."""
+    if name not in _LOADED:
+        load_all((name,))
+    return _LOADED[name][0]
+
+
+def load_all(names=KERNELS) -> None:
+    """Load the named kernels' libraries, building those not on disk yet:
+    one ``nvcc`` for each source, all started together."""
     with _LOCK:
-        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
-    with lock:
-        if name not in _LOADED:
-            _LOADED[name] = compile_source(PACKAGE_DIR / "csrc" / f"{name}.cu")
-        return _LOADED[name][0]
+        start = time.perf_counter()
+        builds = []
+        try:
+            for name in names:
+                if name in _LOADED:
+                    continue
+                source = PACKAGE_DIR / "csrc" / f"{name}.cu"
+                digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                lib_path = BUILD_DIR / f"{name}-{digest[:16]}.so"
+                if lib_path.exists():
+                    log_path = lib_path.with_suffix(".log")
+                    log = log_path.read_text() if log_path.exists() else ""
+                    _LOADED[name] = (ctypes.CDLL(str(lib_path)), 0.0, log)
+                    continue
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+                proc = subprocess.Popen(
+                    [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+                    stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT,
+                    text=True,
+                )
+                builds.append((name, proc, tmp, lib_path))
+            for name, proc, tmp, lib_path in builds:
+                log = proc.communicate()[0]
+                seconds = time.perf_counter() - start
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed to build {name}.cu:\n{log}")
+                lib_path.with_suffix(".log").write_text(log)
+                os.replace(tmp, lib_path)
+                _LOADED[name] = (ctypes.CDLL(str(lib_path)), seconds, log)
+        finally:
+            for _, proc, _, _ in builds:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
 
 
 def build_info(name: str) -> tuple[float, str]:
-    """(seconds spent building, compiler log) of a loaded kernel library;
-    0 seconds when the library was already on disk (the log is the one
-    kept from its build)."""
+    """(seconds from the start of its build until the library was ready,
+    compiler log) of a loaded kernel library; 0 seconds when the library
+    was already on disk (the log is the one kept from its build)."""
     load(name)
     _, seconds, log = _LOADED[name]
     return seconds, log
-
-
-def compile_source(source: Path) -> tuple[ctypes.CDLL, float, str]:
-    """Build one ``.cu`` file into ``BUILD_DIR`` (unless a library of the
-    same source and flags is there) and load it: (library, build seconds,
-    compiler log)."""
-    source = Path(source)
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib_path = BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
-    log_path = lib_path.with_suffix(".log")
-    seconds = 0.0
-    if lib_path.exists():
-        log = log_path.read_text() if log_path.exists() else ""
-    else:
-        tmp = lib_path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-        start = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-            capture_output=True,
-            text=True,
-        )
-        seconds = time.perf_counter() - start
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {source.name}:\n{log}")
-        log_path.write_text(log)
-        os.replace(tmp, lib_path)
-    return ctypes.CDLL(str(lib_path)), seconds, log
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -22,22 +22,19 @@
 //   so a thread makes 32 outputs from registers and a warp writes 512
 //   contiguous bytes of a row per store.  The grid is one-dimensional over
 //   tiles (row-major), so no grid dimension limits the rows.
-// * Wide stores.  Where every row starts 16-byte aligned (m a multiple of
-//   the vector width, 4 in f32 and 2 in f64) a thread owns 4 consecutive
-//   columns and stores them as one float4 (two double2 in f64); the
-//   ragged last tile stores whole vectors or nothing.  Otherwise a thread
-//   owns columns lane + 32c and stores scalars, each warp store a 128-byte
-//   coalesced row segment.  Nothing is padded.
+// * Wide stores.  A thread owns 4 consecutive columns of each of its rows
+//   and stores them as one float4 (two double2 in f64) where they start
+//   16-byte aligned -- every row when m is a multiple of 4 -- and one by
+//   one elsewhere and at the ragged right edge.  Nothing is padded.
 // * No staging at small D.  For D <= 4 each thread reads its rows' x and
 //   its columns' y straight from global memory (L1/L2) into registers: no
 //   shared memory and no barrier.  For larger D, chunks of 16 features of
 //   the tile's 64 rows and 128 columns go through shared memory (two
 //   barriers a chunk), read back as broadcasts and 16-byte vectors.
 //
-// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W: 1.07 ms
-// for the 28672^2 training covariance (a fill_ of the same buffer, the
-// card's practical write floor, takes 1.00 ms), 0.16 ms for the (28672,
-// 4096) cross covariance (floor 0.146 ms).
+// chip_smoke.py times both grams at the main path's shapes beside this
+// bound and beside a fill_ of the same buffer (the card's write floor);
+// PERF.md section 6 keeps the readings.
 //
 // Deliberate difference from the TPU kernel: squared distances are exact
 // elementwise sums (x_k - y_k)^2 at every D.  The TPU kernel uses a centred
@@ -112,12 +109,6 @@ __device__ __forceinline__ T apply_profile(T d2, T ls, T s2) {
   return mul_rn(mul_rn(s2, poly), exp_(-s5));
 }
 
-// Column offset within the tile of a thread's c-th column.
-template <bool VEC>
-__device__ __forceinline__ int tile_col(int lane, int c) {
-  return VEC ? COLS * lane + c : lane + 32 * c;
-}
-
 // acc[r][c] += (x_k - y_k)^2 over one feature k, in ascending k.
 template <typename T>
 __device__ __forceinline__ void accumulate(T (&acc)[ROWS][COLS], const T (&xv)[ROWS], const T (&yv)[COLS]) {
@@ -131,7 +122,7 @@ __device__ __forceinline__ void accumulate(T (&acc)[ROWS][COLS], const T (&xv)[R
   }
 }
 
-template <typename T, int P, bool VEC, bool STAGED>
+template <typename T, int P, bool STAGED>
 __global__ void __launch_bounds__(THREADS)
 radial_gram_kernel(const T* __restrict__ X, const T* __restrict__ Y, const T* __restrict__ diag,
                    T* __restrict__ out, int64_t n, int64_t m, int d, int64_t col_tiles, T ls,
@@ -141,6 +132,7 @@ radial_gram_kernel(const T* __restrict__ X, const T* __restrict__ Y, const T* __
   const int64_t row0 = (int64_t)(blockIdx.x / col_tiles) * BM;
   const int64_t col0 = (int64_t)(blockIdx.x % col_tiles) * BN;
   const int64_t i0 = row0 + warp * ROWS;  // this thread's first row
+  const int64_t j0 = col0 + COLS * lane;  // this thread's first column
 
   T acc[ROWS][COLS];
 #pragma unroll
@@ -154,10 +146,7 @@ radial_gram_kernel(const T* __restrict__ X, const T* __restrict__ Y, const T* __
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) xv[r] = i0 + r < n ? X[(i0 + r) * d + k] : T(0);
 #pragma unroll
-      for (int c = 0; c < COLS; ++c) {
-        const int64_t j = col0 + tile_col<VEC>(lane, c);
-        yv[c] = j < m ? Y[j * d + k] : T(0);
-      }
+      for (int c = 0; c < COLS; ++c) yv[c] = j0 + c < m ? Y[(j0 + c) * d + k] : T(0);
       accumulate(acc, xv, yv);
     }
   } else {
@@ -179,7 +168,7 @@ radial_gram_kernel(const T* __restrict__ X, const T* __restrict__ Y, const T* __
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) xv[r] = xs[k][warp * ROWS + r];
 #pragma unroll
-        for (int c = 0; c < COLS; ++c) yv[c] = ys[k][tile_col<VEC>(lane, c)];
+        for (int c = 0; c < COLS; ++c) yv[c] = ys[k][COLS * lane + c];
         accumulate(acc, xv, yv);
       }
       __syncthreads();
@@ -198,17 +187,16 @@ radial_gram_kernel(const T* __restrict__ X, const T* __restrict__ Y, const T* __
     if (meets_diag) {
 #pragma unroll
       for (int c = 0; c < COLS; ++c)
-        if (i == col0 + tile_col<VEC>(lane, c)) v[c] = add_rn(v[c], diag[i]);
+        if (i == j0 + c) v[c] = add_rn(v[c], diag[i]);
     }
-    T* row = out + i * m + col0;
-    if (VEC) {
+    T* row = out + i * m + j0;
+    if (j0 + COLS <= m && reinterpret_cast<uintptr_t>(row) % 16 == 0) {
 #pragma unroll
-      for (int c = 0; c < COLS; c += Vec<T>::N)
-        if (col0 + tile_col<VEC>(lane, c) < m) Vec<T>::store(row + tile_col<VEC>(lane, c), v + c);
+      for (int c = 0; c < COLS; c += Vec<T>::N) Vec<T>::store(row + c, v + c);
     } else {
 #pragma unroll
       for (int c = 0; c < COLS; ++c)
-        if (col0 + tile_col<VEC>(lane, c) < m) row[tile_col<VEC>(lane, c)] = v[c];
+        if (j0 + c < m) row[c] = v[c];
     }
   }
 }
@@ -219,11 +207,7 @@ int launch_profile(const T* X, const T* Y, const T* diag, T* out, int64_t n, int
   const int64_t col_tiles = (m + BN - 1) / BN;
   const int64_t tiles = (n + BM - 1) / BM * col_tiles;
   if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;  // grid.x limit
-  // Vector stores need every row to start 16-byte aligned.
-  const bool vec = m % Vec<T>::N == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const bool staged = d > SMALL_D;
-  auto kernel = vec ? (staged ? &radial_gram_kernel<T, P, true, true> : &radial_gram_kernel<T, P, true, false>)
-                    : (staged ? &radial_gram_kernel<T, P, false, true> : &radial_gram_kernel<T, P, false, false>);
+  auto kernel = d > SMALL_D ? &radial_gram_kernel<T, P, true> : &radial_gram_kernel<T, P, false>;
   kernel<<<(unsigned)tiles, THREADS, 0, stream>>>(X, Y, diag, out, n, m, d, col_tiles, ls, sigma);
   return (int)cudaGetLastError();
 }

@@ -73,10 +73,8 @@ def plain_radial_gram(X, Y, length_scale, sigma, profile: str, diag_add=None):
     return out
 
 
-def call_library(lib, X, Y, length_scale: float, sigma: float, diag, profile: str):
-    """Launch the ``radial_gram_f32`` / ``radial_gram_f64`` entry of a loaded
-    kernel library on X's current stream: (output, CUDA error code).  Counts
-    nothing and checks nothing: ``_launch`` does both."""
+def _launch(X, Y, length_scale: float, sigma: float, diag, profile: str):
+    lib = _build.load("radial_gram")
     n, d = X.shape
     m = Y.shape[0]
     out = torch.empty((n, m), dtype=X.dtype, device=X.device)
@@ -95,12 +93,6 @@ def call_library(lib, X, Y, length_scale: float, sigma: float, diag, profile: st
         X.data_ptr(), Y.data_ptr(), None if diag is None else diag.data_ptr(),
         out.data_ptr(), n, m, d, length_scale, sigma, _PROFILE_ID[profile], stream,
     )
-    return out, code
-
-
-def _launch(X, Y, length_scale: float, sigma: float, diag, profile: str):
-    lib = _build.load("radial_gram")
-    out, code = call_library(lib, X, Y, length_scale, sigma, diag, profile)
     _build.count_launch("radial_gram" if diag is None else "radial_gram_diag")
     _build.check(lib, code, "radial_gram kernel")
     return out

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's exact-GP main path once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile] [--against RADIAL_GRAM_CU]
+    python3 chip_smoke.py [--profile]
 
 Builds the hand-written CUDA kernels from ``albatross_tpu_torch/csrc``,
 holds each against its plain PyTorch version on the card at the main
@@ -18,9 +18,6 @@ beside its bound (the least time the card could take for the same work);
 the gram kernels also beside the card's write floor, a ``fill_`` of a
 buffer of the gram's shape.
 ``--profile`` adds a torch.profiler breakdown of one NLML's device time.
-``--against`` builds another version of ``radial_gram.cu`` (an earlier
-commit's, say) and times it in turns against this one: theirs, ours, ours,
-theirs, at the main path's gram shapes, at D = 16 and in f64.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -38,7 +35,6 @@ import statistics
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 N = 28672          # training points (the bench model's size)
@@ -205,36 +201,10 @@ def check_f64_path(torch, np, pt, _build, model) -> None:
         fail(f"an f64 factorization launched the f32 panel kernel {launches} times")
 
 
-def compare_gram_sources(torch, source: Path, cases, card: str) -> None:
-    """Time the gram kernel of another ``radial_gram.cu`` (built into the
-    same build directory) against this one on the same inputs, in turns:
-    theirs, ours, ours, theirs.  Each pair of outputs must be bitwise
-    equal: both compute the same expression in the same order."""
-    from albatross_tpu_torch import _build
-    from albatross_tpu_torch.ops.radial_gram import call_library
-
-    theirs, seconds, log = _build.compile_source(source)
-    ours = _build.load("radial_gram")
-    print(f"--against {source}: built in {seconds:.1f} s; {ptxas_summary(log)}")
-    for label, X, Y, ls, sigma, profile, diag in cases:
-        def run(lib):
-            out, code = call_library(lib, X, Y, ls, sigma, diag, profile)
-            _build.check(lib, code, f"radial_gram ({label})")
-            return out
-
-        if not torch.equal(run(theirs), run(ours)):
-            fail(f"--against: the two gram kernels differ at {label}")
-        times = [cuda_ms(torch, lambda lib=lib: run(lib)) for lib in (theirs, ours, ours, theirs)]
-        print(f"[{card}] gram {label}: theirs {times[0]:.4f} / {times[3]:.4f} ms, "
-              f"ours {times[1]:.4f} / {times[2]:.4f} ms (theirs, ours, ours, theirs; outputs bitwise equal)")
-
-
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="also print a torch.profiler breakdown of the NLML's device time")
-    parser.add_argument("--against", metavar="RADIAL_GRAM_CU", type=Path,
-                        help="also time the gram kernel of this radial_gram.cu in turns against the repo's")
     args = parser.parse_args()
     import torch
 
@@ -264,8 +234,7 @@ def main() -> int:
 
     # -- build: one nvcc for each source, all started together --------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(_build.KERNELS)) as pool:
-        list(pool.map(_build.load, _build.KERNELS))
+    _build.load_all()
     for name in _build.KERNELS:
         seconds, log = _build.build_info(name)
         print(f"build {name}: {seconds:.1f} s; {ptxas_summary(log)}")
@@ -512,16 +481,6 @@ def main() -> int:
     print(f"[{card}] panel_cholinv b=128 (one tile step): kernel "
           f"{cuda_ms(torch, lambda: panel_cholinv(A128)):.4f} ms, plain "
           f"{cuda_ms(torch, lambda: plain_panel_cholinv(A128)):.4f} ms")
-    if args.against:
-        x1, xs1 = x[:, None], xs[:, None]
-        x64 = x1.double()
-        compare_gram_sources(torch, args.against, [
-            (f"+ diag ({N}, {N}) D=1 f32", x1, x1, LENGTH_SCALE, SIGMA, profile, diag),
-            (f"({N}, {N_TEST}) D=1 f32", x1, xs1, LENGTH_SCALE, SIGMA, profile, None),
-            (f"({N}, {N_TEST}) D=16 matern_52 f32", X16, Y16, 3.0, 1.5, "matern_52", None),
-            (f"+ diag ({N}, {N}) D=1 f64", x64, x64, LENGTH_SCALE, SIGMA, profile, diag.double()),
-        ], card)
-        del x64
     del X16, Y16
     if args.profile:
         profile_nlml(torch, model, data, card)

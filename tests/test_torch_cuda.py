@@ -32,8 +32,9 @@ def cuda():
 
 
 # (n, m): m % 4 = 1, 2, 3 and 0 with n not a multiple of the 64-row tile
-# (the vector and the scalar store paths, ragged last tiles), and a gram
-# smaller than one 64 x 128 tile; K(X, X) spans several tiles except there.
+# (vector stores on rows that start 16-byte aligned, scalar stores on the
+# others and at the ragged edge), and a gram smaller than one 64 x 128
+# tile; K(X, X) spans several tiles except there.
 @pytest.mark.parametrize("shape", [(300, 141), (130, 258), (333, 4099), (200, 256), (5, 3)])
 @pytest.mark.parametrize("profile", PROFILES)
 @pytest.mark.parametrize("d", [1, 3, 16])
