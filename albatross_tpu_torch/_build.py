@@ -8,7 +8,9 @@ changes.  Nothing here runs at import time: the CPU tests import every
 module, and a CPU-only PyTorch build has no CUDA at all.
 
 ``LAUNCHES`` holds one plain integer per kernel wrapper; a wrapper adds one
-where it launches its kernel and nowhere else.
+where it launches its kernel and nowhere else.  ``BACKWARDS`` counts the
+calls of each kernel's autograd backward (plain PyTorch products, not a
+launch of the kernel).
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ KERNELS = ("radial_gram", "panel_cholinv")
 
 # kernel wrapper name -> launches since the last reset
 LAUNCHES: dict[str, int] = {"radial_gram": 0, "radial_gram_diag": 0, "panel_cholinv": 0}
+# kernel name -> calls of its autograd backward since the last reset
+BACKWARDS: dict[str, int] = {"panel_cholinv": 0}
 
 # kernel source name -> (library, build seconds, compiler log)
 _LOADED: dict[str, tuple[ctypes.CDLL, float, str]] = {}
@@ -39,12 +43,17 @@ _LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    for counts in (LAUNCHES, BACKWARDS):
+        for key in counts:
+            counts[key] = 0
 
 
 def count_launch(name: str) -> None:
     LAUNCHES[name] += 1
+
+
+def count_backward(name: str) -> None:
+    BACKWARDS[name] += 1
 
 
 def _nvcc() -> str:

@@ -4,8 +4,13 @@ from .module import Module
 from .parameters import (
     Parameter,
     ParameterStore,
+    TunableParameters,
+    ensure_value_within_bounds,
+    get_tunable_parameters,
+    host_float,
     map_join,
     parameter_prior_log_likelihood,
+    set_tunable_params,
 )
 from .priors import (
     PRIOR_TYPES,

@@ -12,7 +12,7 @@ from __future__ import annotations
 import copy
 from typing import Dict, Tuple
 
-from .parameters import Parameter, ParameterHandlingMixin, map_join
+from .parameters import Parameter, ParameterHandlingMixin, host_float, map_join
 
 
 class Module(ParameterHandlingMixin):
@@ -69,6 +69,6 @@ class Module(ParameterHandlingMixin):
 
     def __repr__(self):
         params = ", ".join(
-            f"{k}={float(v.value):g}" for k, v in sorted(self._own_params().items())
+            f"{k}={host_float(v.value):g}" for k, v in sorted(self._own_params().items())
         )
         return f"{type(self).__name__}({params})"

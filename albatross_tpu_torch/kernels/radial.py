@@ -12,7 +12,7 @@ import math
 
 import torch
 
-from ..core.parameters import Parameter
+from ..core.parameters import Parameter, host_float
 from ..core.priors import NonNegativePrior, PositivePrior
 from .base import CovarianceFunction
 from .distances import EuclideanDistance
@@ -98,7 +98,7 @@ class _RadialKernel(CovarianceFunction):
         from ..ops.radial_gram import radial_gram
 
         ls, sigma = self._params_values()
-        if float(ls) <= 0.0:
+        if host_float(ls) <= 0.0:
             return torch.zeros((X.shape[0], Y.shape[0]), dtype=X.dtype, device=X.device)
         return radial_gram(X, Y, ls, sigma, self._profile_name)
 

@@ -22,6 +22,10 @@ casts its input to f32) and the JAX package never sends an f64 panel to
 it, so neither does the port.  The panel solve and the trailing updates
 are plain large GEMMs (``torch.matmul``), as the JAX package leaves them
 to XLA.
+
+Gradients: autograd differentiates the loop; each diagonal panel's factor
+and inverse come from one ``torch.autograd.Function`` with a closed-form
+backward (ops/panel_cholinv.py), on every device.
 """
 
 from __future__ import annotations
@@ -78,34 +82,36 @@ def _tri_solve_identity(L: torch.Tensor) -> torch.Tensor:
 def blocked_tri_inverse(L: torch.Tensor, sub: int = DEFAULT_PANEL_SUB) -> torch.Tensor:
     """Inverse of a lower-triangular matrix, GEMM-rich: the diagonal
     sub-blocks are inverted by one batched triangular solve, then row block
-    r of W is W[r, :r] = -W_rr @ (L[r, :r] @ W[:r, :r])."""
+    r of W is W[r, :r] = -W_rr @ (L[r, :r] @ W[:r, :r]).
+
+    W grows by whole row blocks (the JAX package's ``_compose_inverse_rows``)
+    and is never written in place, so autograd can differentiate it: each
+    product keeps the rows it read."""
     m = L.shape[0]
     if m <= sub or m % sub != 0:
         return _tri_solve_identity(L)
     S = m // sub
     diag = torch.stack([L[i * sub:(i + 1) * sub, i * sub:(i + 1) * sub] for i in range(S)])
     winv = _tri_solve_identity(diag)
-    W = torch.zeros_like(L)  # filled row block by row block below
-    W[:sub, :sub] = winv[0]
+    W = winv[0]  # the (r0, r0) leading block built so far
     for r in range(1, S):
         r0 = r * sub
-        W[r0:r0 + sub, :r0] = -(winv[r] @ (L[r0:r0 + sub, :r0] @ W[:r0, :r0]))
-        W[r0:r0 + sub, r0:r0 + sub] = winv[r]
+        left = -(winv[r] @ (L[r0:r0 + sub, :r0] @ W))
+        W = torch.cat([torch.cat([W, W.new_zeros((r0, sub))], dim=1),
+                       torch.cat([left, winv[r]], dim=1)], dim=0)
     return W
 
 
 def _panel_chol_inverse(Akk: torch.Tensor, sub: int = DEFAULT_PANEL_SUB):
-    """(L, L^-1) of a diagonal panel: the CUDA panel kernel for CUDA
-    tensors other than f64, torch.linalg.cholesky + blocked_tri_inverse
-    (the JAX package's default panel path) for f64 CUDA tensors and for CPU
-    tensors."""
-    if Akk.is_cuda and Akk.dtype != torch.float64:
-        from .panel_cholinv import panel_cholinv
+    """(L, L^-1) of a diagonal panel through the panel Function
+    (ops/panel_cholinv.py): its forward is the CUDA panel kernel for CUDA
+    f32 tensors, torch.linalg.cholesky + blocked_tri_inverse (the JAX
+    package's default panel path) for f64 CUDA tensors and for CPU tensors;
+    its backward is the closed form on every device."""
+    from .panel_cholinv import panel_cholinv_function
 
-        U, Wu = panel_cholinv(Akk)
-        return U.T, Wu.T
-    L = cholesky(Akk)
-    return L, blocked_tri_inverse(L, sub)
+    U, Wu = panel_cholinv_function(Akk, sub)
+    return U.T, Wu.T
 
 
 def blocked_cholesky(K: torch.Tensor, block_size: int | None = None, rhs=None):
@@ -162,39 +168,93 @@ def blocked_cholesky_cols(
             return out[:n, :n]
         L, z = out
         return L[:n, :n], z[:n]
-    # Each entry holds only the active rows k*b..n of column panel k, as a
-    # private contiguous copy: the trailing updates subtract in place on
-    # these copies (inside the GEMM) instead of allocating a new panel and a
-    # product temporary per update.
-    cols = [
-        K[k * b:, k * b:(k + 1) * b].clone(memory_format=torch.contiguous_format)
-        for k in range(n // b)
-    ]
+    cols = list(_ColumnPanels.apply(K, b))
     return _cols_core(cols, n, b, rhs, panel_sub=panel_sub, assemble=assemble)
 
 
+class _ColumnPanels(torch.autograd.Function):
+    """The active rows k*b..n of each column panel k of K, as private
+    contiguous copies: the trailing updates subtract in place on these
+    copies (inside the GEMM) instead of allocating a new panel and a product
+    temporary per update.  The backward writes every panel's gradient into
+    one (n, n) buffer; autograd's own slice backward would allocate and add
+    an (n, n) buffer per panel."""
+
+    @staticmethod
+    def forward(ctx, K, b):
+        ctx.n, ctx.b = K.shape[0], b
+        return tuple(
+            K[k * b:, k * b:(k + 1) * b].clone(memory_format=torch.contiguous_format)
+            for k in range(K.shape[0] // b)
+        )
+
+    @staticmethod
+    def backward(ctx, *grads):
+        n, b = ctx.n, ctx.b
+        gK = next(g for g in grads if g is not None).new_zeros((n, n))
+        for k, g in enumerate(grads):
+            if g is not None:
+                gK[k * b:, k * b:(k + 1) * b] = g
+        return gK, None
+
+
+class _TrailingUpdate(torch.autograd.Function):
+    """cols[j] -= B[r0:] B[r0:r0+b]^T in place for each later panel j (r0 =
+    (j - k - 1) b), where B holds the rows of column panel k below its
+    diagonal block.  The backward accumulates B's gradient in one buffer,
+    inside the GEMMs; autograd of the sliced ``addmm_`` would allocate and
+    add a buffer of B's shape for each slice."""
+
+    @staticmethod
+    def forward(ctx, B, *cols):
+        b = B.shape[1]
+        for i, C in enumerate(cols):
+            C.addmm_(B[i * b:], B[i * b:(i + 1) * b].T, alpha=-1.0)  # C -= A B^T in the GEMM
+        ctx.mark_dirty(*cols)
+        ctx.save_for_backward(B)
+        return cols
+
+    @staticmethod
+    def backward(ctx, *grads):
+        (B,) = ctx.saved_tensors
+        b = B.shape[1]
+        gB = torch.zeros_like(B)
+        for i, G in enumerate(grads):
+            if G is not None:
+                r0 = i * b
+                gB[r0:].addmm_(G, B[r0:r0 + b], alpha=-1.0)
+                gB[r0:r0 + b].addmm_(G.T, B[r0:], alpha=-1.0)
+        return (gB, *grads)
+
+
 def _cols_core(cols, n: int, b: int, rhs, *, panel_sub: int, assemble: bool):
-    """The right-looking loop over active-row column panels."""
+    """The right-looking loop over active-row column panels.
+
+    Autograd differentiates it: the whitened vector is built from per-panel
+    pieces (an in-place write would change rows an earlier product saved),
+    while the trailing updates stay in place on the private column copies
+    (``_TrailingUpdate`` saves its factor B, never the matrices it
+    updates)."""
     G = n // b
-    z = None if rhs is None else rhs.clone()  # whitened in place
+    tail = rhs  # rows k0.. of the partly whitened right-hand side
+    white, diags = [], []
     for k in range(G):
-        k0 = k * b
         col = cols[k]  # (n - k0, b)
         Lkk, W = _panel_chol_inverse(col[:b], panel_sub)
         below = col[b:] @ W.T  # (n - k0 - b, b)
-        cols[k] = torch.cat([Lkk, below], dim=0)
-        if z is not None:
-            zk = W @ z[k0:k0 + b]
-            z[k0:k0 + b] = zk
-            z[k0 + b:] -= below @ zk
-        for j in range(k + 1, G):
-            j0 = j * b
-            Lj = below[j0 - k0 - b:j0 - k0]  # (b, b): panel rows of j
-            Lrows = below[j0 - k0 - b:]  # rows j0.. of column k
-            cols[j].addmm_(Lrows, Lj.T, alpha=-1.0)  # C -= A B^T in the GEMM
+        if assemble:
+            cols[k] = torch.cat([Lkk, below], dim=0)
+        else:
+            diags.append(torch.diagonal(Lkk))
+        if tail is not None:
+            zk = W @ tail[:b]
+            white.append(zk)
+            tail = tail[b:] - below @ zk
+        if k + 1 < G:
+            cols[k + 1:] = _TrailingUpdate.apply(below, *cols[k + 1:])
+    z = None if rhs is None else torch.cat(white)
     if not assemble:
-        diag = torch.cat([torch.diagonal(cols[k][:b]) for k in range(G)])
-        return diag, z
+        return torch.cat(diags), z
     L = torch.zeros((n, n), dtype=cols[0].dtype, device=cols[0].device)
     for k in range(G):
         L[k * b:, k * b:(k + 1) * b] = cols[k]

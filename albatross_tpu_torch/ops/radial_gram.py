@@ -10,7 +10,13 @@ the global diagonal in the same pass (the JAX package's
 
 Gradients: when an input requires grad, the CUDA forward is wrapped in a
 ``torch.autograd.Function`` whose backward differentiates the plain closed
-form, as the JAX package's custom VJP differentiates its XLA closed form.
+form, as the JAX package's custom VJP (``_fused_bwd`` / ``_fused_diag_bwd``)
+differentiates its XLA closed form: the TPU kernels have no backward kernel.
+On the NLML's value+grad path the backward rebuilds the (N, N) closed form
+with autograd, about five N x N temporaries at its peak.  CPU tensors take
+the closed form and autograd directly.  Host-side reads of the scalars
+(``host_float``) detach them first, so a parameter that requires grad is
+read without a warning.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import math
 import torch
 
 from .. import _build
+from ..core.parameters import host_float
 from ..kernels.distances import as_matrix
 
 PROFILES = ("squared_exponential", "exponential", "matern_32", "matern_52")
@@ -156,8 +163,7 @@ def radial_gram(X, Y, length_scale, sigma, profile: str = "squared_exponential",
     if not (X.is_cuda or Y.is_cuda):
         return plain_radial_gram(X, Y, length_scale, sigma, profile, diag_add)
     _check_cuda_inputs(X, Y, diag_add)
-    ls_value, sigma_value = (float(v.detach()) if isinstance(v, torch.Tensor) else float(v)
-                             for v in (length_scale, sigma))
+    ls_value, sigma_value = host_float(length_scale), host_float(sigma)
     inputs = (X, Y, length_scale, sigma, diag_add)
     if not (torch.is_grad_enabled()
             and any(isinstance(t, torch.Tensor) and t.requires_grad for t in inputs)):
@@ -228,6 +234,6 @@ def fused_training_covariance(kernel, X, target_variance=None, jitter: float = 0
     diag = diag + jitter
     if target_variance is not None:
         diag = diag + target_variance
-    if float(ls) <= 0.0:
+    if host_float(ls) <= 0.0:
         return torch.diag(diag)  # the closed forms' length_scale > 0 guard
     return radial_gram(X, X, ls, sigma, radial._profile_name, diag_add=diag)

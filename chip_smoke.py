@@ -13,11 +13,19 @@ against an f64 plain-PyTorch reference on the card and that every kernel
 of the path was launched, and times it.  A short f64 phase at N = 3072
 checks that f64 on the card factors its panels as the JAX package does
 (torch.linalg.cholesky + blocked_tri_inverse, no panel-kernel launch) and
-matches the CPU.  Any failed check raises.  Each kernel's time is printed
+matches the CPU.  The value+grad phase runs the tuning loop's unit of
+work, -log_likelihood and its gradient with respect to the tunable vector
+through ``set_tunable_params``: at N = 8192 it is held against an f64
+reference on the card that does not use the blocked loop (with a TF32
+control that must fail the same gate), its launches and panel backward
+calls are counted and it is timed; at N = 28672 it is timed with its peak
+memory; a 10-iteration L-BFGS run of ``get_tuner`` at N = 8192 must lower
+the objective.  Any failed check raises.  Each kernel's time is printed
 beside its bound (the least time the card could take for the same work);
 the gram kernels also beside the card's write floor, a ``fill_`` of a
 buffer of the gram's shape.
-``--profile`` adds a torch.profiler breakdown of one NLML's device time.
+``--profile`` adds a torch.profiler breakdown of one NLML's device time and
+of one value+grad evaluation's, forward and backward apart.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -43,7 +51,12 @@ SEED = 0
 LENGTH_SCALE, SIGMA, NOISE, JITTER = 0.5, 1.0, 0.3, 1e-4
 PANELS = 28        # N / 1024: the CUDA panel size at N = 28672
 N_F64 = 3072       # the f64 phase: three panels of 1024
+N_GRAD = 8192      # the value+grad phase (bench.py's value+grad size)
+PANELS_GRAD = 8    # N_GRAD / 1024
 REPS = 5
+GRAD_REPS = 10     # value+grad evaluations timed at N_GRAD (bench.py times 8)
+BIG_GRAD_REPS = 3  # value+grad evaluations timed at N
+TUNE_ITERATIONS = 10
 # NVIDIA's data sheet for the H100 SXM: device memory rate, and the FP32
 # rate outside the tensor cores (the panel kernel and the grams use no
 # tensor cores).
@@ -73,6 +86,12 @@ PREDICT_VAR_TOL = 5e-6
 # f64 on the card against f64 on the CPU: the same algorithm, only the
 # summation order of the BLAS differs (about 1e-13 here).
 F64_REL_TOL = 1e-9
+# value+grad at N_GRAD, f32 against an f64 reference: the value's relative
+# error and the gradient's largest error relative to its largest entry,
+# about 10x the f32 errors measured on H100 (1.87e-6 and 1.21e-6), so TF32
+# GEMMs cannot pass unseen: the TF32 control (value 4.1e-5) must fail them.
+GRAD_VALUE_REL_TOL = 2e-5
+GRAD_REL_TOL = 1.2e-5
 
 SOURCES = {
     "radial_gram": ("albatross_tpu_torch/csrc/radial_gram.cu", "albatross_tpu/ops/pallas_gram.py:81"),
@@ -142,16 +161,16 @@ def cuda_ms(torch, fn, reps: int = REPS, batch: int = 10) -> float:
     return statistics.median(times)
 
 
-def profile_nlml(torch, model, data, card: str, evals: int = 2) -> None:
-    """Where the NLML's device time goes: torch.profiler over ``evals``
-    evaluations, device kernels only, per eval, plus the device idle share
+def print_profile(torch, fn, what: str, card: str, evals: int) -> None:
+    """Where ``fn``'s device time goes: torch.profiler over ``evals`` calls
+    of it, device kernels only, per call, plus the device idle share
     against host wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for _ in range(evals):
-            model.log_likelihood(data)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     rows, device_us = [], 0.0
@@ -166,10 +185,194 @@ def profile_nlml(torch, model, data, card: str, evals: int = 2) -> None:
             device_us += us
     if not rows:
         fail("torch.profiler recorded no device time")
-    print(f"[{card}] profile of {evals} NLML evals: wall {wall_ms:.1f} ms, device kernels "
+    print(f"[{card}] profile of {evals} x {what}: wall {wall_ms:.1f} ms, device kernels "
           f"{device_us / 1e3:.1f} ms, device idle share {1 - device_us / 1e3 / wall_ms:.4f}")
     for us, key, count in sorted(rows, reverse=True)[:16]:
-        print(f"  {us / 1e3 / evals:9.3f} ms/eval  {count // evals:5d} launches/eval  {key[:100]}")
+        print(f"  {us / 1e3 / evals:9.3f} ms/call  {count // evals:5d} launches/call  {key[:100]}")
+
+
+def value_grad(torch, model, data):
+    """(-log_likelihood, its gradient with respect to the tunable vector x):
+    x from ``get_tunable_parameters``, the model from
+    ``set_tunable_params(x)``, the gradient by autograd.  Synchronised."""
+    x = model.get_tunable_parameters().values.clone().requires_grad_(True)
+    value = -model.set_tunable_params(x).log_likelihood(data)
+    (grad,) = torch.autograd.grad(value, x)
+    torch.cuda.synchronize()
+    return value, grad
+
+
+def reference_value_grad(torch, model, x64, y64, profile: str):
+    """value_grad's f64 reference on the card, without the port's blocked
+    loop or kernels: the closed-form gram plus the noise and jitter
+    diagonal, torch.linalg.cholesky, a triangular solve and autograd."""
+    from albatross_tpu_torch.ops.radial_gram import plain_radial_gram
+
+    x = model.get_tunable_parameters().values.clone().requires_grad_(True)
+    tuned = model.set_tunable_params(x)
+    p = {name: param.value for name, param in tuned.get_params().items()}
+    noise = p["sigma_independent_noise"]
+    diag = torch.zeros(x64.shape[0], dtype=torch.float64, device=x64.device) + (noise * noise + JITTER)
+    K = plain_radial_gram(x64, x64, p["squared_exponential_length_scale"],
+                          p["sigma_squared_exponential"], profile, diag)
+    L = torch.linalg.cholesky(K)
+    white = torch.linalg.solve_triangular(L, y64[:, None], upper=False)[:, 0]
+    n = x64.shape[0]
+    nll = 0.5 * (2.0 * torch.log(L.diagonal()).sum() + white @ white + n * math.log(2 * math.pi))
+    value = nll - tuned.prior_log_likelihood().to(nll.device)
+    (grad,) = torch.autograd.grad(value, x)
+    return value.item(), grad
+
+
+def grad_errors(value, grad, ref):
+    """(value relative error, max |grad error| / max |grad|) against the
+    f64 reference; NaN when anything is non-finite."""
+    ref_value, ref_grad = ref
+    rel = abs(value.item() - ref_value) / abs(ref_value)
+    gerr = ((grad.double().cpu() - ref_grad.cpu()).abs().max() / ref_grad.abs().max()).item()
+    return rel, gerr
+
+
+def check_value_grad(torch, np, pt, _build, card: str, args) -> dict:
+    """The value+grad phase at N_GRAD: the f64 gate and its TF32 control,
+    the launch and panel-backward counts, the timing, and a short L-BFGS
+    run of the tuner.  Returns the counted run's launch and backward
+    counts."""
+    from albatross_tpu_torch.evaluation import GaussianProcessNegativeLogLikelihood
+    from albatross_tpu_torch.tuning import get_tuner
+
+    rng = np.random.default_rng(SEED + 2)
+    x_np = np.sort(rng.uniform(0.0, 100.0, N_GRAD)).astype(np.float32)
+    y_np = (np.sin(0.3 * x_np) + 0.1 * rng.standard_normal(N_GRAD)).astype(np.float32)
+    kernel = pt.SquaredExponential(LENGTH_SCALE, SIGMA) + pt.measurement_only(
+        pt.IndependentNoise(NOISE, assume_unique=True)
+    )
+    model = pt.gp_from_covariance(kernel, jitter=JITTER)
+    data = pt.RegressionDataset.create(x_np, y_np, dtype=torch.float32)  # the card by default
+
+    _build.reset_launch_counts()
+    value, grad = value_grad(torch, model, data)
+    counts, backwards = dict(_build.LAUNCHES), dict(_build.BACKWARDS)
+    print(f"value+grad N={N_GRAD} f32: launches {counts}, panel backward calls {backwards}")
+    if (counts["radial_gram_diag"] != 1 or counts["panel_cholinv"] != PANELS_GRAD
+            or counts["radial_gram"] != 0 or backwards["panel_cholinv"] != PANELS_GRAD):
+        fail(f"value+grad launch counts {counts}, backward calls {backwards}")
+    if grad.shape != (3,) or not torch.isfinite(grad).all():
+        fail(f"value+grad gradient {grad}")
+
+    x64 = torch.as_tensor(x_np, dtype=torch.float64, device="cuda")
+    y64 = torch.as_tensor(y_np, dtype=torch.float64, device="cuda")
+    ref = reference_value_grad(torch, model, x64, y64, "squared_exponential")
+    errors = grad_errors(value, grad, ref)
+    print(f"value+grad N={N_GRAD}: -log_likelihood f32 = {value.item()!r}, f64 = {ref[0]!r}, rel err "
+          f"{errors[0]:.3e} (tol {GRAD_VALUE_REL_TOL:g}); gradient f32 = {grad.tolist()}, f64 = "
+          f"{ref[1].tolist()}, max err / max |grad| {errors[1]:.3e} (tol {GRAD_REL_TOL:g})")
+    if not (errors[0] <= GRAD_VALUE_REL_TOL and errors[1] <= GRAD_REL_TOL):
+        fail(f"value+grad disagrees with the f64 reference: {errors}")
+    torch.set_float32_matmul_precision("high")
+    try:
+        tf32_errors = grad_errors(*value_grad(torch, model, data), ref)
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"value+grad TF32 control: value rel err {tf32_errors[0]:.3e}, gradient {tf32_errors[1]:.3e}")
+    if tf32_errors[0] <= GRAD_VALUE_REL_TOL and tf32_errors[1] <= GRAD_REL_TOL:
+        fail(f"the value+grad gate accepts a TF32 factorization: {tf32_errors}")
+    print("value+grad TF32 control: the gate rejects it")
+    del x64, y64
+
+    value_grad(torch, model, data)  # warm-up
+    times = []
+    for _ in range(GRAD_REPS):
+        t = time.perf_counter()
+        value_grad(torch, model, data)
+        times.append(time.perf_counter() - t)
+    t_eval = statistics.median(times)
+    print(f"[{card}] NLML value+grad N={N_GRAD} f32: {1.0 / t_eval:.2f} evals/s ({t_eval * 1e3:.2f} ms/eval, "
+          f"median of {GRAD_REPS}; all {times})")
+
+    tune_kernel = (pt.SquaredExponential(0.3, 0.7)
+                   + pt.measurement_only(pt.IndependentNoise(NOISE, assume_unique=True)))
+    tune_kernel = (tune_kernel
+                   .set_param_prior("squared_exponential_length_scale", pt.LogScaleUniformPrior(1e-2, 1e3))
+                   .set_param_prior("sigma_squared_exponential", pt.LogScaleUniformPrior(1e-2, 1e3))
+                   .set_param_prior("sigma_independent_noise", pt.FixedPrior()))
+    tune_model = pt.gp_from_covariance(tune_kernel, jitter=JITTER)
+    metric = GaussianProcessNegativeLogLikelihood()
+    evaluations = [0]  # objective evaluations so far; per iteration below
+
+    def counted_metric(dataset, m):
+        evaluations[-1] += 1
+        return metric(dataset, m)
+
+    stamps = []  # host clock at the end of each iteration
+
+    def log_fn(i, x, v):
+        stamps.append(time.perf_counter())
+        evaluations.append(0)
+
+    t = time.perf_counter()
+    # L-BFGS reads every value back anyway, so a chunk of one iteration
+    # costs nothing and lets log_fn close each iteration's count
+    tuner = get_tuner(tune_model, counted_metric, data, optimizer="lbfgs",
+                      max_iterations=TUNE_ITERATIONS, log_fn=log_fn, sync_every=1)
+    tuned, result = tuner.tuned_model()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    ls = float(tuned.get_param_value("squared_exponential_length_scale"))
+    sg = float(tuned.get_param_value("sigma_squared_exponential"))
+    # the first iteration also pays the optimizer's one-time set-up (the
+    # first torch.optim optimizer of a process imports torch._dynamo)
+    per_iteration = (stamps[-1] - stamps[0]) / (len(stamps) - 1)
+    print(f"[{card}] L-BFGS tuning N={N_GRAD} f32, {len(result.history)} iterations: objective "
+          f"{result.history[0]:.6g} -> {result.value:.6g}; length scale 0.3 -> {ls:.6g}, sigma 0.7 -> "
+          f"{sg:.6g}; {per_iteration:.4f} s/iteration over iterations 2-{len(stamps)}, "
+          f"{stamps[0] - t:.3f} s to the end of the first (set-up included), {seconds:.2f} s in all; "
+          f"{sum(evaluations)} value+grad evaluations")
+    print(f"L-BFGS objective by iteration {result.history}; value+grad evaluations by iteration "
+          f"{evaluations[:-1]}, then {evaluations[-1]} for the final value")
+    if not (result.value < result.history[0] and math.isfinite(result.value)):
+        fail(f"L-BFGS did not lower the objective: {result.history}")
+    if not (tuned.params_are_valid() and math.isfinite(ls) and math.isfinite(sg)):
+        fail(f"L-BFGS left invalid parameters: length scale {ls}, sigma {sg}")
+    if args.profile:
+        print_profile(torch, lambda: value_grad(torch, model, data), f"value+grad N={N_GRAD}", card, 2)
+    return {"launches": counts, "backwards": backwards}
+
+
+def time_value_grad_big(torch, model, data, card: str, args) -> None:
+    """value+grad at the main path's N: s/eval, TFLOP/s by bench.py's
+    3x-forward accounting, and the evaluation's peak device memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    value_grad(torch, model, data)  # warm-up, and the memory reading
+    peak = torch.cuda.max_memory_allocated()
+    times = []
+    for _ in range(BIG_GRAD_REPS):
+        t = time.perf_counter()
+        value, grad = value_grad(torch, model, data)
+        times.append(time.perf_counter() - t)
+    if not (math.isfinite(value.item()) and torch.isfinite(grad).all()):
+        fail(f"value+grad at N={N} is not finite: {value.item()}, {grad}")
+    t_eval = statistics.median(times)
+    print(f"[{card}] NLML value+grad N={N} f32: {t_eval:.4f} s/eval (median of {BIG_GRAD_REPS}; all {times}), "
+          f"{3.0 * nlml_flops(N) / t_eval / 1e12:.3f} TFLOP/s by bench.py's 3x-forward accounting; "
+          f"peak device memory {peak / 2**30:.2f} GiB")
+    if args.profile:
+        x = model.get_tunable_parameters().values.clone().requires_grad_(True)
+        holder = {}
+
+        def forward():
+            holder["value"] = -model.set_tunable_params(x).log_likelihood(data)
+
+        def backward():
+            torch.autograd.grad(holder.pop("value"), x)
+
+        forward()
+        torch.cuda.synchronize()
+        print_profile(torch, backward, f"value+grad backward N={N}", card, 1)
+        print_profile(torch, forward, f"value+grad forward N={N}", card, 1)
+        del holder
 
 
 def check_f64_path(torch, np, pt, _build, model) -> None:
@@ -221,7 +424,7 @@ def main() -> int:
 
     import albatross_tpu_torch as pt
     from albatross_tpu_torch import _build
-    from albatross_tpu_torch.ops.panel_cholinv import panel_cholinv, plain_panel_cholinv
+    from albatross_tpu_torch.ops.panel_cholinv import panel_cholinv, panel_cholinv_backward, plain_panel_cholinv
     from albatross_tpu_torch.ops.radial_gram import plain_radial_gram, radial_gram
 
     dev = torch.device("cuda")
@@ -424,6 +627,7 @@ def main() -> int:
         fail(f"the end-to-end gates accept a TF32 factorization: {tf32_errors}")
     print("TF32 control: the end-to-end gates reject it")
     check_f64_path(torch, np, pt, _build, model)
+    grad_counts = check_value_grad(torch, np, pt, _build, card, args)
 
     # -- timings (after the counted run) -----------------------------------
     def nlml_once():
@@ -482,8 +686,17 @@ def main() -> int:
           f"{cuda_ms(torch, lambda: panel_cholinv(A128)):.4f} ms, plain "
           f"{cuda_ms(torch, lambda: plain_panel_cholinv(A128)):.4f} ms")
     del X16, Y16
+    # the panel's backward (five b x b FP32 products through torch.matmul)
+    U, Wu = panel_cholinv(A)
+    gU, gW = torch.randn_like(U), torch.randn_like(Wu)
+    b = A.shape[0]
+    back_bound, back_by = bound(4 * 5 * b * b, 10 * b**3)
+    back_ms = cuda_ms(torch, lambda: panel_cholinv_backward(U, Wu, gU, gW))
+    print(f"[{card}] panel_cholinv backward b={b}: {back_ms:.4f} ms, bound {back_bound:.4f} ms by {back_by} "
+          f"({back_bound / back_ms:.1%} of it)")
+    time_value_grad_big(torch, model, data, card, args)
     if args.profile:
-        profile_nlml(torch, model, data, card)
+        print_profile(torch, lambda: model.log_likelihood(data), f"NLML N={N}", card, 2)
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
@@ -494,7 +707,10 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": None,  # no single PyTorch call computes a radial gram or a panel factor + inverse
+            "value_grad_launches": grad_counts["launches"][name],
         }
+        if name in grad_counts["backwards"]:
+            entry["value_grad_backward_calls"] = grad_counts["backwards"][name]
         if "write_floor_ms" in r:
             entry["write_floor_ms"] = r["write_floor_ms"]
         kernels.append(entry)

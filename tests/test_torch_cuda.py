@@ -125,8 +125,8 @@ def test_panel_kernel_guards_and_nan(cuda):
         panel_cholinv(torch.eye(1152, device=cuda))
     with pytest.raises(TypeError):
         panel_cholinv(torch.eye(128, dtype=torch.float64, device=cuda))
-    with pytest.raises(RuntimeError, match="no backward"):
-        panel_cholinv(torch.eye(128, device=cuda).requires_grad_(True))
+    U, _ = panel_cholinv(torch.eye(128, device=cuda).requires_grad_(True))  # takes grad now
+    assert U.requires_grad
     A = torch.eye(256, device=cuda)
     A[3, 3] = -1.0
     U, _ = panel_cholinv(A)
@@ -145,6 +145,64 @@ def test_panel_kernel_nan_in_last_sub_block(cuda, pivot):
     U, Wu = panel_cholinv(A)
     assert torch.isnan(U[pivot, pivot]) and torch.isnan(Wu[pivot, pivot])
     assert torch.isfinite(U[:pivot]).all() and torch.isfinite(Wu[:pivot, :pivot]).all()
+
+
+@pytest.mark.parametrize("b", [128, 256, 1024])
+def test_panel_kernel_gradient_matches_plain(cuda, b):
+    """The panel Function on the card (kernel forward, closed-form
+    backward) against autograd of the plain f32 version (cuSOLVER Cholesky
+    + blocked_tri_inverse) on the same panel and cotangents.  Both carry
+    f32 rounding of O(b^3) products of a panel with condition ~5, each about
+    1e-6 from the exact gradient: 1e-4 relative to the largest entry leaves
+    a wide margin and still fails a gradient that is wrong."""
+    g = torch.Generator().manual_seed(b + 11)
+    M = torch.randn((b, b), generator=g, dtype=torch.float64)
+    A = (M @ M.T / b + torch.eye(b, dtype=torch.float64)).float().to(cuda)
+    gU = torch.randn((b, b), generator=g).to(cuda)
+    gW = torch.randn((b, b), generator=g).to(cuda)
+    _build.reset_launch_counts()
+    A1 = A.clone().requires_grad_(True)
+    U, Wu = panel_cholinv(A1)
+    (got,) = torch.autograd.grad((U, Wu), A1, (gU, gW))
+    assert _build.LAUNCHES["panel_cholinv"] == 1 and _build.BACKWARDS["panel_cholinv"] == 1
+    A2 = A.clone().requires_grad_(True)
+    Up, Wp = plain_panel_cholinv(A2)
+    (ref,) = torch.autograd.grad((Up, Wp), A2, (gU, gW))
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max() / ref.abs().max() < 1e-4
+
+
+def _value_grad(model, data):
+    x = model.get_tunable_parameters().values.clone().requires_grad_(True)
+    value = -model.set_tunable_params(x).log_likelihood(data)
+    (grad,) = torch.autograd.grad(value, x)
+    return value.item(), grad
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_value_grad_on_cuda_matches_cpu_f64(cuda, dtype):
+    """-log_likelihood and its gradient with respect to the tunable vector
+    at n = 3072 (three panels of 1024) on the card against f64 on the CPU.
+    f64: the same algorithm, 1e-9 relative as for the value.  f32: the
+    value within 1e-6 per point as in test_gp_on_cuda_matches_cpu_f64, the
+    gradient within 1e-4 relative to its largest entry (chip_smoke.py
+    measured 1.2e-6 at n = 8192 on H100 and gates it at 1.2e-5)."""
+    model, x, y = _bench_gp(3072, seed=4)
+    on_cpu = pt.RegressionDataset.create(x, y, device="cpu", dtype=torch.float64)
+    on_gpu = pt.RegressionDataset.create(x, y, device="cuda", dtype=dtype)
+    _build.reset_launch_counts()
+    value, grad = _value_grad(model, on_gpu)
+    f32 = dtype == torch.float32
+    assert _build.LAUNCHES["radial_gram_diag"] == 1
+    assert _build.LAUNCHES["panel_cholinv"] == (3 if f32 else 0)  # the kernel is f32-only
+    assert _build.BACKWARDS["panel_cholinv"] == 3  # the panel Function's backward, on every dtype
+    value_ref, grad_ref = _value_grad(model, on_cpu)
+    assert torch.isfinite(grad).all()
+    err = ((grad.cpu() - grad_ref).abs().max() / grad_ref.abs().max()).item()
+    if f32:
+        assert abs(value - value_ref) < 1e-6 * 3072 and err < 1e-4
+    else:
+        assert abs(value - value_ref) <= 1e-9 * abs(value_ref) and err < 1e-9
 
 
 def test_panel_kernel_on_main_path_panel(cuda):

@@ -20,6 +20,7 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, albatross_tpu_torch\n"
         "import albatross_tpu_torch.ops, albatross_tpu_torch.models, albatross_tpu_torch.convert\n"
+        "import albatross_tpu_torch.tuning, albatross_tpu_torch.evaluation\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'albatross_tpu.'))]\n"
         "assert not bad, bad\n"
     )
