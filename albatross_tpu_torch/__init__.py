@@ -2,14 +2,16 @@
 
 A port of the JAX package ``albatross_tpu`` that keeps its module paths and
 public names: covariance DSL (radial kernels, noise, measurement-only
-terms), exact GP fit / predict / log-likelihood and its gradient, the
-tunable-parameter round trip and the tuners (``tuning``, with the NLML
-metric in ``evaluation``), and the blocked Cholesky beneath them.  Its hot spots are hand-written CUDA kernels for Hopper
-(``csrc/``), built with nvcc at first use; CPU tensors take each kernel's
-plain PyTorch version.  Importing this package never imports JAX.
+terms), exact GP fit / predict / log-likelihood and its gradient (with
+the lazy-gram loop for large N), fast LOO / LOGO cross-validation
+(``evaluation``, ``indexing``), the tunable-parameter round trip and the
+tuners (``tuning``), and the blocked Cholesky beneath them.  Its hot
+spots are hand-written CUDA kernels for Hopper (``csrc/``), built with
+nvcc at first use; CPU tensors take each kernel's plain PyTorch version.
+Importing this package never imports JAX.
 """
 
-from . import config, convert, core, evaluation, kernels, models, ops, tuning
+from . import config, convert, core, evaluation, indexing, kernels, models, ops, tuning
 from .core import (
     FixedPrior,
     GaussianPrior,

@@ -32,8 +32,11 @@ NVCC_FLAGS = (
 
 KERNELS = ("radial_gram", "panel_cholinv")
 
-# kernel wrapper name -> launches since the last reset
-LAUNCHES: dict[str, int] = {"radial_gram": 0, "radial_gram_diag": 0, "panel_cholinv": 0}
+# kernel wrapper name -> launches since the last reset; the gram kernel
+# counts its three launch forms apart: the cross covariance, the square
+# training covariance, and the lazy-gram loop's column blocks
+LAUNCHES: dict[str, int] = {"radial_gram": 0, "radial_gram_diag": 0, "radial_gram_cols": 0,
+                            "panel_cholinv": 0}
 # kernel name -> calls of its autograd backward since the last reset
 BACKWARDS: dict[str, int] = {"panel_cholinv": 0}
 

@@ -1,5 +1,14 @@
-from .dataset import RegressionDataset, feature_count
-from .distributions import JointDistribution, MarginalDistribution
+from .dataset import (
+    RegressionDataset,
+    align_datasets,
+    concatenate_datasets,
+    concatenate_features,
+    deduplicate,
+    feature_count,
+    subset_features,
+    transform_dataset,
+)
+from .distributions import JointDistribution, MarginalDistribution, concatenate_marginals
 from .module import Module
 from .parameters import (
     Parameter,

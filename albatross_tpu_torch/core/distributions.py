@@ -8,9 +8,16 @@ matrix), a ``JointDistribution`` a mean and a dense covariance.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
+
+
+def as_index(indices, device) -> torch.Tensor:
+    """Row indices (a tensor, numpy array, list or int) as a tensor on
+    ``device``: integer indices as int64, a boolean mask as it is."""
+    idx = torch.as_tensor(indices, device=device)
+    return idx if idx.dtype == torch.bool else idx.long()
 
 
 def _as_float(x, like: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -55,6 +62,10 @@ class MarginalDistribution:
     def marginal(self) -> "MarginalDistribution":
         return self
 
+    def subset(self, indices) -> "MarginalDistribution":
+        idx = as_index(indices, self.mean.device)
+        return MarginalDistribution(self.mean[idx], None if self.variance is None else self.variance[idx])
+
     def __repr__(self):
         return (
             f"MarginalDistribution(n={tuple(self.mean.shape)}, "
@@ -90,5 +101,18 @@ class JointDistribution:
     def covariance_matrix(self) -> torch.Tensor:
         return self.covariance
 
+    def subset(self, indices) -> "JointDistribution":
+        idx = as_index(indices, self.mean.device)
+        return JointDistribution(self.mean[idx], self.covariance[idx][:, idx])
+
     def __repr__(self):
         return f"JointDistribution(n={tuple(self.mean.shape)})"
+
+
+def concatenate_marginals(dists: Sequence[MarginalDistribution]) -> MarginalDistribution:
+    """Concatenate independent marginals; the variance stays None only when
+    every part has none."""
+    mean = torch.cat([d.mean for d in dists])
+    if all(d.variance is None for d in dists):
+        return MarginalDistribution(mean, None)
+    return MarginalDistribution(mean, torch.cat([d.get_variance() for d in dists]))

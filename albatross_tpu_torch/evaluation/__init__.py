@@ -1,3 +1,37 @@
-from .model_metrics import GaussianProcessNegativeLogLikelihood, ModelMetric
+from .cross_validation import CrossValidation, CVPrediction, predict_fold
+from .cross_validation_utils import (
+    BatchedGrouped,
+    cross_validated_scores,
+    held_out_predictions,
+    leave_one_group_out_conditional,
+    leave_one_out_conditional,
+    leave_one_out_conditional_variance,
+)
+from .entropy import differential_entropy
+from .folds import (
+    RegressionFold,
+    create_fold,
+    folds_from_group_indexer,
+    folds_from_grouper,
+    k_fold_folds,
+    leave_one_out_folds,
+)
+from .metrics import (
+    Crps,
+    NegativeLogLikelihood,
+    PredictionMetric,
+    RootMeanSquareError,
+    StandardDeviation,
+    crps_normal,
+    negative_log_likelihood_joint,
+    negative_log_likelihood_marginal,
+)
+from .model_metrics import (
+    GaussianProcessNegativeLogLikelihood,
+    LeaveOneGroupOutLikelihood,
+    LeaveOneOutLikelihood,
+    LeaveOneOutRMSE,
+    ModelMetric,
+)
 
 __all__ = [k for k in dir() if not k.startswith("_")]

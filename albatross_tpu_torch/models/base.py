@@ -29,6 +29,11 @@ class ModelBase(Module):
             targets = MarginalDistribution.create(targets)
         return FitModel(self, self._fit_impl(features, targets))
 
+    def cross_validate(self):
+        from ..evaluation.cross_validation import CrossValidation
+
+        return CrossValidation(self)
+
     @property
     def model_name(self) -> str:
         return type(self).__name__.lower()

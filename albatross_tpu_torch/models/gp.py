@@ -10,7 +10,11 @@ Counterpart of ``albatross_tpu.models.gp`` (main path):
   rounding-scale negatives;
 * predict joint : K** - K*^T K^-1 K*;
 * log_likelihood: -NLL(y - m(X), K(X, X)) + sum of prior log-pdfs, with no
-  target variance added, as the reference does.
+  target variance added, as the reference does.  From
+  ``config.CHOLESKY_FUSED_MIN_N`` points on (or with
+  ``CHOLESKY_ALGORITHM = "right_fused"``) a kernel of the fused pattern
+  takes the lazy-gram loop, which never holds the N x N covariance;
+* cross_validated_predictions: fast LOO / LOGO from one fit.
 """
 
 from __future__ import annotations
@@ -21,14 +25,15 @@ from typing import Any, Optional
 
 import torch
 
+from .. import config
 from ..core.dataset import RegressionDataset
 from ..core.distributions import JointDistribution, MarginalDistribution
-from ..core.parameters import map_join
+from ..core.parameters import host_float, map_join
 from ..kernels.base import CovarianceFunction
 from ..kernels.features import Measurement, as_measurement
 from ..kernels.means import MeanFunction, ZeroMean
 from ..ops.linalg import CholeskyFactor
-from ..ops.radial_gram import fused_training_covariance
+from ..ops.radial_gram import fused_training_covariance, match_fused_training_cov, radial_gram_cols
 from .base import ModelBase
 
 LOG_2PI = math.log(2.0 * math.pi)
@@ -74,6 +79,35 @@ def _nll_from_whitened(log_det, white):
     """1/2 (log|K| + ||L^-1 dev||^2 + n log 2 pi); no target variance."""
     n = white.shape[0]
     return 0.5 * (log_det + torch.sum(white * white) + n * LOG_2PI)
+
+
+def _make_gram_col_fn(x2, ls, sigma, diag_add, profile):
+    """col_fn(j0, b) -> active rows j0..n of training-covariance column
+    panel [j0, j0 + b), the diagonal (noise + jitter) included: the gram
+    kernel's column block (ops/radial_gram.py radial_gram_cols).
+
+    Everything the panels share is read once here: the scalars as host
+    floats for the launches, the scalars moved to x2's device for the
+    backward, and the (n,) diagonal whose slices the panels take (so the
+    noise gradient sums over the panels)."""
+    host_scalars = host_float(ls), host_float(sigma)
+    if isinstance(ls, torch.Tensor):
+        ls = ls.to(x2.device)
+    if isinstance(sigma, torch.Tensor):
+        sigma = sigma.to(x2.device)
+    diag = torch.zeros((x2.shape[0],), dtype=x2.dtype, device=x2.device) + diag_add
+
+    def col_fn(j0, b):
+        return radial_gram_cols(x2, j0, b, ls, sigma, profile, diag, host_scalars)
+
+    return col_fn
+
+
+def _fused_gram_nlml(x2, ls, sigma, diag_add, rhs, *, profile: str):
+    """(log|K|, L^-1 rhs) with the gram produced inside the factorization:
+    no N x N covariance is ever written."""
+    col_fn = _make_gram_col_fn(x2, ls, sigma, diag_add, profile)
+    return CholeskyFactor.nlml_terms(None, rhs, col_fn=col_fn)
 
 
 class GaussianProcess(ModelBase):
@@ -154,19 +188,75 @@ class GaussianProcess(ModelBase):
             self.mean_function.add_to(features, pred.mean), pred.covariance
         )
 
+    def prior(self, features) -> JointDistribution:
+        measurements = as_measurement(features)
+        return JointDistribution(self.mean_function(measurements), self.covariance_function(measurements))
+
+    def _training_cov_fused_pieces(self, measurements):
+        """``(x2, ls, sigma, diag_add, profile)`` when the training
+        covariance is one radial term + diagonal-only noise over one (N,) or
+        (N, D <= 8) feature tensor -- the pattern the lazy-gram loop builds
+        column by column -- else None.  D > 8 stays on the materialized
+        path, as in the JAX package."""
+        if not isinstance(measurements, Measurement):
+            return None
+        matched = match_fused_training_cov(self.covariance_function, for_measurements=True)
+        x = measurements.value
+        if matched is None or not isinstance(x, torch.Tensor) or x.ndim > 2:
+            return None
+        x2 = x[:, None] if x.ndim == 1 else x
+        if x2.shape[-1] > 8:
+            return None
+        radial, ls, sigma, diag_scalar = matched
+        return x2, ls, sigma, diag_scalar + self.jitter, radial._profile_name
+
+    def _training_cov_col_fn(self, measurements):
+        """The lazy column producer over the matched pieces (for
+        ``CholeskyFactor.nlml_terms(col_fn=...)``), or None."""
+        pieces = self._training_cov_fused_pieces(measurements)
+        if pieces is None:
+            return None
+        x2, ls, sigma, diag_add, profile = pieces
+        return _make_gram_col_fn(x2, ls, sigma, diag_add, profile)
+
     def log_likelihood(self, dataset: RegressionDataset) -> torch.Tensor:
         """Log marginal likelihood plus the parameters' prior log-pdfs.
 
-        The covariance is materialized and factorized without assembling
-        the factor (CholeskyFactor.nlml_terms)."""
+        The factor is never assembled (CholeskyFactor.nlml_terms).  The
+        covariance is materialized, except on the lazy-gram loop: from
+        ``config.CHOLESKY_FUSED_MIN_N`` points on, or always with
+        ``CHOLESKY_ALGORITHM = "right_fused"``, above n = 2048 and for a
+        kernel of the fused pattern."""
         measurements = as_measurement(dataset.features)
         zero_mean = self.mean_function.remove_from(measurements, dataset.targets.mean)
-        cov, fused = self._training_covariance(measurements, None)
-        log_det, white = CholeskyFactor.nlml_terms(
-            cov, zero_mean, jitter=0.0 if fused else self.jitter, assume_symmetric=True
-        )
+        n = zero_mean.shape[0]
+        algorithm = config.cholesky_algorithm()
+        if algorithm == "right" and config.CHOLESKY_FUSED_MIN_N and n >= config.CHOLESKY_FUSED_MIN_N:
+            algorithm = "right_fused"
+        pieces = None
+        if algorithm == "right_fused" and n > 2048:
+            pieces = self._training_cov_fused_pieces(measurements)
+        if pieces is not None:
+            x2, ls, sigma, diag_add, profile = pieces
+            log_det, white = _fused_gram_nlml(x2, ls, sigma, diag_add, zero_mean, profile=profile)
+        else:
+            cov, fused = self._training_covariance(measurements, None)
+            log_det, white = CholeskyFactor.nlml_terms(
+                cov, zero_mean, jitter=0.0 if fused else self.jitter, assume_symmetric=True
+            )
         ll = -_nll_from_whitened(log_det, white)
         return ll + self.prior_log_likelihood().to(device=ll.device, dtype=ll.dtype)
+
+    def cross_validated_predictions(self, dataset: RegressionDataset, indexers, predict_type):
+        """Fast LOO / LOGO: fit once, then each group's held-out prediction
+        from the diagonal blocks of the inverse.  The raw target mean is
+        passed: the information vector already accounts for the mean
+        function."""
+        from ..evaluation.cross_validation_utils import held_out_predictions
+
+        fit = self.fit(dataset).fit
+        return held_out_predictions(fit.train_covariance, dataset.targets.mean, fit.information,
+                                    indexers, predict_type)
 
 
 def gp_from_covariance(

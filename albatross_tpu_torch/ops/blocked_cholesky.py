@@ -23,6 +23,11 @@ it, so neither does the port.  The panel solve and the trailing updates
 are plain large GEMMs (``torch.matmul``), as the JAX package leaves them
 to XLA.
 
+``blocked_cholesky_cols_fused`` runs the same loop over lazy column
+panels: ``col_fn(j0, b)`` builds each panel's active rows (the gram kernel
+writes them straight into the buffer the loop then updates in place), so
+no (n, n) matrix exists at any point.
+
 Gradients: autograd differentiates the loop; each diagonal panel's factor
 and inverse come from one ``torch.autograd.Function`` with a closed-form
 backward (ops/panel_cholinv.py), on every device.
@@ -69,9 +74,10 @@ def default_block_size(n: int, device: torch.device) -> int:
 def cholesky(K: torch.Tensor) -> torch.Tensor:
     """torch.linalg.cholesky with the JAX package's failure semantics: a
     matrix that is not positive definite gives an all-NaN factor (which
-    surfaces downstream) instead of an exception."""
+    surfaces downstream) instead of an exception; batched over leading
+    dimensions, matrix by matrix."""
     L, info = torch.linalg.cholesky_ex(K)
-    return torch.where(info == 0, L, torch.full_like(L, float("nan")))
+    return torch.where((info == 0)[..., None, None], L, torch.full_like(L, float("nan")))
 
 
 def _tri_solve_identity(L: torch.Tensor) -> torch.Tensor:
@@ -172,6 +178,63 @@ def blocked_cholesky_cols(
     return _cols_core(cols, n, b, rhs, panel_sub=panel_sub, assemble=assemble)
 
 
+def blocked_cholesky_cols_fused(
+    col_fn,
+    n: int,
+    rhs: torch.Tensor | None = None,
+    block_size: int | None = None,
+    panel_sub: int = DEFAULT_PANEL_SUB,
+    assemble: bool = True,
+    device: torch.device | str | None = None,
+):
+    """``blocked_cholesky_cols`` over lazy column panels: ``col_fn(j0, b)``
+    returns the active rows j0..n of column panel [j0, j0 + b) of the SPD
+    matrix, diagonal terms included, as a fresh tensor: the loop updates
+    it in place.  Returns what blocked_cholesky_cols returns; the block
+    size follows ``rhs``'s device (or ``device``).
+
+    A block size that does not divide n pads lazily, as blocked_cholesky_cols
+    pads K: each panel gets zero rows below row n, and the last panel an
+    identity block on its padded diagonal.  n <= b factors col_fn(0, n),
+    the whole matrix.  The JAX package materializes K in both cases; the
+    arithmetic is the same."""
+    if not assemble and rhs is None:
+        raise ValueError("assemble=False requires rhs (the NLML fused path)")
+    if device is None:
+        if rhs is None:
+            raise ValueError("blocked_cholesky_cols_fused needs rhs or device to pick its block size")
+        device = rhs.device
+    b = block_size if block_size is not None else default_block_size(n, torch.device(device))
+    if n <= b:
+        K = col_fn(0, n)
+        return blocked_cholesky_cols(K, block_size=b, rhs=None if rhs is None else rhs.to(K.dtype),
+                                     panel_sub=panel_sub, assemble=assemble)
+    m = -(-n // b) * b
+    cols = []
+    for k0 in range(0, m, b):
+        bk = min(b, n - k0)
+        col = col_fn(k0, bk)  # (n - k0, bk)
+        if bk < b:  # the last panel: [[K_kk, 0], [0, I]]
+            col = torch.block_diag(col, torch.eye(b - bk, dtype=col.dtype, device=col.device))
+        elif m > n:  # zero rows n..m
+            col = torch.nn.functional.pad(col, (0, 0, 0, m - n))
+        cols.append(col)
+    if rhs is not None:
+        rhs = rhs.to(cols[0].dtype)
+        if m > n:
+            rhs = torch.cat([rhs, rhs.new_zeros(m - n)])
+    out = _cols_core(cols, m, b, rhs, panel_sub=panel_sub, assemble=assemble)
+    if m == n:
+        return out
+    if not assemble:
+        diag, z = out
+        return diag[:n], z[:n]
+    if rhs is None:
+        return out[:n, :n]
+    L, z = out
+    return L[:n, :n], z[:n]
+
+
 class _ColumnPanels(torch.autograd.Function):
     """The active rows k*b..n of each column panel k of K, as private
     contiguous copies: the trailing updates subtract in place on these
@@ -232,9 +295,11 @@ def _cols_core(cols, n: int, b: int, rhs, *, panel_sub: int, assemble: bool):
 
     Autograd differentiates it: the whitened vector is built from per-panel
     pieces (an in-place write would change rows an earlier product saved),
-    while the trailing updates stay in place on the private column copies
-    (``_TrailingUpdate`` saves its factor B, never the matrices it
-    updates)."""
+    while the trailing updates stay in place on the column panels, private
+    copies of K or the gram kernel's outputs (``_TrailingUpdate`` saves its
+    factor B, never the matrices it updates).  Without ``assemble`` a panel
+    is dropped from ``cols`` once factored, so without autograd only the
+    panels still to factor stay alive."""
     G = n // b
     tail = rhs  # rows k0.. of the partly whitened right-hand side
     white, diags = [], []
@@ -245,6 +310,7 @@ def _cols_core(cols, n: int, b: int, rhs, *, panel_sub: int, assemble: bool):
         if assemble:
             cols[k] = torch.cat([Lkk, below], dim=0)
         else:
+            cols[k] = col = None
             diags.append(torch.diagonal(Lkk))
         if tail is not None:
             zk = W @ tail[:b]

@@ -86,10 +86,17 @@ def _accurate_log_values(x: torch.Tensor):
 
 
 class _AccurateLog(torch.autograd.Function):
+    # torch.func.vmap batches it (cross-validation scores every fold in one
+    # vmap): the forward is elementwise
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
+    def forward(x):
         return _accurate_log_values(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
 
     @staticmethod
     def backward(ctx, grad_h, grad_l):

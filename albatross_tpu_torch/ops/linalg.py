@@ -1,20 +1,23 @@
 """Dense Cholesky factorization and solves.
 
 Counterpart of ``CholeskyFactor`` in ``albatross_tpu.ops.linalg``: factorize,
-factorize_whiten, nlml_terms (materialized-K path), solve, sqrt_solve and
-log_determinant.  Above n = 2048 the factorization is the blocked
-column-panel loop; at or below it torch.linalg.cholesky plus triangular
-solves.
+factorize_whiten, nlml_terms (the materialized K, or the lazy-gram loop
+with ``col_fn``), the solves, the log-determinant, and the inverse pieces
+behind fast cross-validation (ops/nlml.py).  Above n = 2048 the
+factorization is the blocked column-panel loop; at or below it
+torch.linalg.cholesky plus triangular solves.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import torch
 
-from .blocked_cholesky import blocked_cholesky_cols, cholesky
+from .blocked_cholesky import blocked_cholesky_cols, blocked_cholesky_cols_fused, cholesky
 from .compensated import accurate_sum_of_logs
+from .nlml import blocked_lauum, tri_inverse_full
 
 # the JAX package's blocked-factorization threshold
 _BLOCKED_MIN_N = 2048
@@ -74,10 +77,21 @@ class CholeskyFactor:
         return cls(L), white
 
     @classmethod
-    def nlml_terms(cls, K, rhs, jitter: float = 0.0, assume_symmetric: bool = False):
-        """(log|K|, L^-1 rhs) without assembling the factor at scale."""
+    def nlml_terms(cls, K, rhs, jitter: float = 0.0, assume_symmetric: bool = False, col_fn=None):
+        """(log|K|, L^-1 rhs) without assembling the factor at scale.
+
+        ``col_fn(j0, b)`` (optional) builds the active rows j0..n of column
+        panel [j0, j0 + b), every diagonal term included: the lazy-gram loop
+        (blocked_cholesky_cols_fused) then factors without any (n, n)
+        matrix, and ``K`` and ``jitter`` are ignored."""
         if rhs.ndim != 1:
             raise ValueError(f"nlml_terms expects a 1-D rhs, got shape {tuple(rhs.shape)}")
+        if col_fn is not None:
+            from .. import config
+
+            config.cholesky_algorithm()  # "left" raises
+            diag, white = blocked_cholesky_cols_fused(col_fn, rhs.shape[0], rhs=rhs, assemble=False)
+            return _sum_of_logs(diag), white
         K = _prepare(K, jitter, assume_symmetric)
         rhs = rhs.to(K.dtype)
         if K.shape[0] > _BLOCKED_MIN_N:
@@ -105,5 +119,47 @@ class CholeskyFactor:
         """L^-1 rhs -- the whitening transform."""
         return _lower_solve(self.L, rhs)
 
+    def sqrt_transpose_solve(self, rhs: torch.Tensor) -> torch.Tensor:
+        """L^-T rhs."""
+        rhs2d = rhs if rhs.ndim > 1 else rhs[:, None]
+        y = torch.linalg.solve_triangular(self.L.T, rhs2d, upper=True)
+        return y if rhs.ndim > 1 else y[:, 0]
+
+    def sqrt_product(self, rhs: torch.Tensor) -> torch.Tensor:
+        """L^T rhs."""
+        return self.L.T @ rhs
+
+    def matmul(self, rhs: torch.Tensor) -> torch.Tensor:
+        """A rhs = L L^T rhs."""
+        return self.L @ (self.L.T @ rhs)
+
     def log_determinant(self) -> torch.Tensor:
         return _sum_of_logs(torch.diagonal(self.L))
+
+    def is_positive_definite(self) -> torch.Tensor:
+        d = torch.diagonal(self.L)
+        return torch.all(torch.isfinite(d)) & torch.all(d > 0)
+
+    def _tri_inverse(self) -> torch.Tensor:
+        """L^-1, GEMM-composed above n = 2048 (ops/nlml.py)."""
+        return tri_inverse_full(self.L)
+
+    def inverse(self) -> torch.Tensor:
+        """A^-1 = L^-T L^-1 (potri: blocked triangular inverse, then the
+        triangularity-exploiting product)."""
+        return blocked_lauum(self._tri_inverse())
+
+    def inverse_diagonal(self) -> torch.Tensor:
+        """diag(A^-1): the column-wise squared norms of L^-1."""
+        Linv = self._tri_inverse()
+        return torch.sum(Linv * Linv, dim=0)
+
+    def inverse_blocks(self, indices: Sequence) -> list:
+        """The diagonal blocks (A^-1)_gg of each index group: one L^-1, then
+        a gather and a small gram per group."""
+        Linv = self._tri_inverse()
+        blocks = []
+        for idx in indices:
+            cols = Linv[:, torch.as_tensor(idx, device=Linv.device)]
+            blocks.append(cols.T @ cols)
+        return blocks

@@ -7,6 +7,11 @@ diagonal); on CUDA tensors it launches ``csrc/radial_gram.cu`` or raises.
 With ``diag_add`` the kernel adds noise / target variance / jitter along
 the global diagonal in the same pass (the JAX package's
 ``_gram_diag_kernel``); without it, it is ``_gram_kernel``.
+``radial_gram_cols`` is the lazy-gram loop's column producer: rows j0..N of
+columns [j0, j0 + b) of the training covariance, a rectangular block whose
+leading b x b block carries the diagonal (the JAX package's
+``_make_gram_col_fn`` over its closed form); the same kernel, counted
+apart.
 
 Gradients: when an input requires grad, the CUDA forward is wrapped in a
 ``torch.autograd.Function`` whose backward differentiates the plain closed
@@ -16,7 +21,8 @@ On the NLML's value+grad path the backward rebuilds the (N, N) closed form
 with autograd, about five N x N temporaries at its peak.  CPU tensors take
 the closed form and autograd directly.  Host-side reads of the scalars
 (``host_float``) detach them first, so a parameter that requires grad is
-read without a warning.
+read without a warning; the column producer takes them read once by its
+caller, not once a panel.
 """
 
 from __future__ import annotations
@@ -80,7 +86,7 @@ def plain_radial_gram(X, Y, length_scale, sigma, profile: str, diag_add=None):
     return out
 
 
-def _launch(X, Y, length_scale: float, sigma: float, diag, profile: str):
+def _launch(X, Y, length_scale: float, sigma: float, diag, profile: str, counter: str):
     lib = _build.load("radial_gram")
     n, d = X.shape
     m = Y.shape[0]
@@ -100,7 +106,7 @@ def _launch(X, Y, length_scale: float, sigma: float, diag, profile: str):
         X.data_ptr(), Y.data_ptr(), None if diag is None else diag.data_ptr(),
         out.data_ptr(), n, m, d, length_scale, sigma, _PROFILE_ID[profile], stream,
     )
-    _build.count_launch("radial_gram" if diag is None else "radial_gram_diag")
+    _build.count_launch(counter)
     _build.check(lib, code, "radial_gram kernel")
     return out
 
@@ -111,10 +117,12 @@ class _RadialGramFunction(torch.autograd.Function):
     forward reads nothing back from the device."""
 
     @staticmethod
-    def forward(ctx, X, Y, length_scale, sigma, diag, profile, ls_value, sigma_value):
+    def forward(ctx, X, Y, length_scale, sigma, diag, profile, ls_value, sigma_value, counter):
+        # the inputs only, never the output: the lazy-gram loop subtracts
+        # in place on it (ops/blocked_cholesky.py _TrailingUpdate)
         ctx.profile = profile
         ctx.save_for_backward(X, Y, length_scale, sigma, diag)
-        return _launch(X, Y, ls_value, sigma_value, diag, profile)
+        return _launch(X, Y, ls_value, sigma_value, diag, profile, counter)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -128,7 +136,7 @@ class _RadialGramFunction(torch.autograd.Function):
         grads = iter(torch.autograd.grad(out, wanted, grad_out, allow_unused=True))
         result = [next(grads) if need and t is not None else None
                   for t, need in zip(inputs, ctx.needs_input_grad)]
-        return (*result, None, None, None)
+        return (*result, None, None, None, None)
 
 
 def _check_cuda_inputs(X, Y, diag):
@@ -143,34 +151,59 @@ def _check_cuda_inputs(X, Y, diag):
     if not (X.is_contiguous() and Y.is_contiguous()):
         raise ValueError("radial_gram kernel needs contiguous X and Y")
     if diag is not None:
-        if diag.device != X.device or diag.dtype != X.dtype or diag.shape != (X.shape[0],):
-            raise ValueError("radial_gram: diag_add must be an (N,) tensor of X's dtype and device")
+        # the kernel adds diag[i] where i == j: the leading diagonal of an
+        # (N, M) block, min(N, M) long
+        length = min(X.shape[0], Y.shape[0])
+        if diag.device != X.device or diag.dtype != X.dtype or diag.shape != (length,):
+            raise ValueError(f"radial_gram: diag_add must be a ({length},) tensor (min(N, M)) of X's "
+                             f"dtype and device, got {tuple(diag.shape)} {diag.dtype} on {diag.device}")
         if not diag.is_contiguous():
             raise ValueError("radial_gram kernel needs a contiguous diag_add")
-        if Y.shape[0] != X.shape[0]:
-            raise ValueError("radial_gram: diag_add needs a square gram")
+
+
+def _gram(X, Y, length_scale, sigma, profile, diag_add, counter, host_scalars=None):
+    if not (X.is_cuda or Y.is_cuda):
+        return plain_radial_gram(X, Y, length_scale, sigma, profile, diag_add)
+    _check_cuda_inputs(X, Y, diag_add)
+    if host_scalars is None:
+        host_scalars = host_float(length_scale), host_float(sigma)
+    inputs = (X, Y, length_scale, sigma, diag_add)
+    if not (torch.is_grad_enabled()
+            and any(isinstance(t, torch.Tensor) and t.requires_grad for t in inputs)):
+        return _launch(X, Y, *host_scalars, diag_add, profile, counter)
+    ls = torch.as_tensor(length_scale, dtype=X.dtype, device=X.device)
+    sg = torch.as_tensor(sigma, dtype=X.dtype, device=X.device)
+    return _RadialGramFunction.apply(X, Y, ls, sg, diag_add, profile, *host_scalars, counter)
 
 
 def radial_gram(X, Y, length_scale, sigma, profile: str = "squared_exponential", diag_add=None):
     """(N, M) radial gram sigma^2 * profile(||x_i - y_j|| / length_scale),
-    plus ``diag_add`` (N,) along the diagonal when given (square case).
+    plus ``diag_add`` (min(N, M),) along the leading diagonal when given.
 
     CPU tensors: the closed form.  CUDA tensors: the hand-written kernel, or
     an error -- never a fallback."""
     if profile not in _PROFILE_ID:
         raise ValueError(f"unknown profile {profile}")
     X, Y = as_matrix(X), as_matrix(Y)
-    if not (X.is_cuda or Y.is_cuda):
-        return plain_radial_gram(X, Y, length_scale, sigma, profile, diag_add)
-    _check_cuda_inputs(X, Y, diag_add)
-    ls_value, sigma_value = host_float(length_scale), host_float(sigma)
-    inputs = (X, Y, length_scale, sigma, diag_add)
-    if not (torch.is_grad_enabled()
-            and any(isinstance(t, torch.Tensor) and t.requires_grad for t in inputs)):
-        return _launch(X, Y, ls_value, sigma_value, diag_add, profile)
-    ls = torch.as_tensor(length_scale, dtype=X.dtype, device=X.device)
-    sg = torch.as_tensor(sigma, dtype=X.dtype, device=X.device)
-    return _RadialGramFunction.apply(X, Y, ls, sg, diag_add, profile, ls_value, sigma_value)
+    counter = "radial_gram" if diag_add is None else "radial_gram_diag"
+    return _gram(X, Y, length_scale, sigma, profile, diag_add, counter)
+
+
+def radial_gram_cols(x, j0: int, b: int, length_scale, sigma, profile: str, diag_add,
+                     host_scalars=None):
+    """Rows j0..N of columns [j0, j0 + b) of the training covariance
+    K(x, x) + diag(diag_add): the (N - j0, b) gram of x[j0:] against
+    x[j0:j0 + b] with ``diag_add[j0:j0 + b]`` on its leading b x b
+    diagonal.  ``diag_add`` is the whole (N,) diagonal; ``host_scalars``
+    the (length scale, sigma) as host floats, read once by the caller.
+
+    Launches the kernel on CUDA tensors, counted as ``radial_gram_cols``;
+    CPU tensors take the closed form."""
+    if profile not in _PROFILE_ID:
+        raise ValueError(f"unknown profile {profile}")
+    X = as_matrix(x)
+    return _gram(X[j0:], X[j0:j0 + b], length_scale, sigma, profile, diag_add[j0:j0 + b],
+                 "radial_gram_cols", host_scalars)
 
 
 def match_fused_training_cov(kernel, for_measurements: bool = True):

@@ -20,12 +20,24 @@ reference on the card that does not use the blocked loop (with a TF32
 control that must fail the same gate), its launches and panel backward
 calls are counted and it is timed; at N = 28672 it is timed with its peak
 memory; a 10-iteration L-BFGS run of ``get_tuner`` at N = 8192 must lower
-the objective.  Any failed check raises.  Each kernel's time is printed
+the objective.  The lazy-gram phases run the memory-lean NLML, where the
+gram kernel writes each column panel straight into the factorization's
+buffers: its column blocks against the plain version at three panels of
+N = 28672; the lazy loop (``CHOLESKY_ALGORITHM = "right_fused"``) against
+the materialized one there, and its value+grad at N = 8192 against the
+f64 reference; and at N = 57344, above ``CHOLESKY_FUSED_MIN_N``, by the
+default route, the forward and value+grad with their launch counts, times
+and peak memory, and the f32 NLML against an f64 lazy NLML on the card.
+The cross-validation phase holds fast LOO, a LOGO of 128 groups of 64 (the
+batched path) and a ragged LOGO at N = 8192 against the same calls in f64
+on the card, with a TF32 control, and times LOO at N = 28672.  Any failed
+check raises.  Each kernel's time is printed
 beside its bound (the least time the card could take for the same work);
 the gram kernels also beside the card's write floor, a ``fill_`` of a
 buffer of the gram's shape.
 ``--profile`` adds a torch.profiler breakdown of one NLML's device time and
-of one value+grad evaluation's, forward and backward apart.
+of one value+grad evaluation's, forward and backward apart, and of one
+lazy NLML at N = 57344.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -57,6 +69,14 @@ REPS = 5
 GRAD_REPS = 10     # value+grad evaluations timed at N_GRAD (bench.py times 8)
 BIG_GRAD_REPS = 3  # value+grad evaluations timed at N
 TUNE_ITERATIONS = 10
+N_LAZY = 57344     # the lazy-gram phase: above CHOLESKY_FUSED_MIN_N
+PANELS_LAZY = 56   # N_LAZY / 1024
+LAZY_REPS = 2      # timed lazy evaluations at N_LAZY (after the counted one)
+COL_B = 1024       # column-panel width on the card
+COL_J0 = (0, 13312, 27648)  # column panels of N checked against the plain gram
+CV_GROUP = 64      # the uniform LOGO: N_GRAD / 64 = 128 groups of 64 sorted points
+CV_RAGGED_WIDTH = 0.7  # the ragged LOGO: inputs grouped by floor(x / 0.7)
+CV_REPS = 3
 # NVIDIA's data sheet for the H100 SXM: device memory rate, and the FP32
 # rate outside the tensor cores (the panel kernel and the grams use no
 # tensor cores).
@@ -92,12 +112,23 @@ F64_REL_TOL = 1e-9
 # GEMMs cannot pass unseen: the TF32 control (value 4.1e-5) must fail them.
 GRAD_VALUE_REL_TOL = 2e-5
 GRAD_REL_TOL = 1.2e-5
+# the lazy and the materialized f32 NLML at N run the same panel, GEMM and
+# gram operations in the same order: equal to the last bit is expected.
+LAZY_REL_TOL = 1e-6
+# cross-validation at N_GRAD, f32 against the same call in f64 on the card,
+# each error the largest absolute difference over the largest f64 entry:
+# about 10x the first reading on H100 (2.3e-6, 4.4e-6, 8.0e-5, 1.27e-4,
+# 2.25e-5, 1.43e-4; the inverse's blocks lose accuracy with the condition
+# number), so the TF32 control (2e-3 to 7e-3) fails them.
+CV_TOLS = {"loo mean": 2.5e-5, "loo variance": 5e-5, "logo mean": 8e-4, "logo covariance": 1.3e-3,
+           "ragged mean": 2.5e-4, "ragged variance": 1.5e-3}
 
 SOURCES = {
     "radial_gram": ("albatross_tpu_torch/csrc/radial_gram.cu", "albatross_tpu/ops/pallas_gram.py:81"),
     "radial_gram_diag": ("albatross_tpu_torch/csrc/radial_gram.cu", "albatross_tpu/ops/pallas_gram.py:137"),
     "panel_cholinv": ("albatross_tpu_torch/csrc/panel_cholinv.cu", "albatross_tpu/ops/pallas_chol.py:121"),
 }
+PROFILE = "squared_exponential"
 
 
 def nlml_flops(n: int) -> float:
@@ -126,6 +157,19 @@ def panel_bound(b: int) -> tuple[float, str]:
     2 b^2 written; 2 b^3 / 3 FLOP (b^3 / 3 for the factor, as much for the
     inverse)."""
     return bound(4 * 3 * b * b, 2 * b**3 / 3)
+
+
+def cols_group_bound(n: int, b: int) -> tuple[float, str]:
+    """Bound of one lazy NLML's column launches at D = 1, f32: for each
+    panel [j0, j0 + b), X = x[j0:], Y and the diagonal (b long) read once,
+    the (n - j0, b) block written once, 7 operations an element; summed,
+    about n (n + b) / 2 entries written."""
+    nbytes = flops = 0.0
+    for j0 in range(0, n, b):
+        rows, cols = n - j0, min(b, n - j0)
+        nbytes += 4 * (rows * cols + rows + 2 * cols)
+        flops += rows * cols * (3 + 4)
+    return bound(nbytes, flops)
 
 
 def ptxas_summary(log: str) -> str:
@@ -191,6 +235,23 @@ def print_profile(torch, fn, what: str, card: str, evals: int) -> None:
         print(f"  {us / 1e3 / evals:9.3f} ms/call  {count // evals:5d} launches/call  {key[:100]}")
 
 
+def bench_model(pt):
+    """The bench model: SquaredExponential(0.5, 1.0) +
+    measurement_only(IndependentNoise(0.3)), jitter 1e-4."""
+    kernel = pt.SquaredExponential(LENGTH_SCALE, SIGMA) + pt.measurement_only(
+        pt.IndependentNoise(NOISE, assume_unique=True)
+    )
+    return pt.gp_from_covariance(kernel, jitter=JITTER)
+
+
+def bench_data(np, n: int, seed: int):
+    """n sorted f32 inputs on [0, 100], targets sin(0.3 x) + 0.1 noise."""
+    rng = np.random.default_rng(seed)
+    x = np.sort(rng.uniform(0.0, 100.0, n)).astype(np.float32)
+    y = (np.sin(0.3 * x) + 0.1 * rng.standard_normal(n)).astype(np.float32)
+    return x, y
+
+
 def value_grad(torch, model, data):
     """(-log_likelihood, its gradient with respect to the tunable vector x):
     x from ``get_tunable_parameters``, the model from
@@ -233,29 +294,24 @@ def grad_errors(value, grad, ref):
     return rel, gerr
 
 
-def check_value_grad(torch, np, pt, _build, card: str, args) -> dict:
+def check_value_grad(torch, np, pt, _build, config, card: str, args) -> dict:
     """The value+grad phase at N_GRAD: the f64 gate and its TF32 control,
-    the launch and panel-backward counts, the timing, and a short L-BFGS
-    run of the tuner.  Returns the counted run's launch and backward
-    counts."""
+    the launch and panel-backward counts, the timing, the same gates on the
+    lazy-gram loop, and a short L-BFGS run of the tuner.  Returns the
+    counted run's launch and backward counts."""
     from albatross_tpu_torch.evaluation import GaussianProcessNegativeLogLikelihood
     from albatross_tpu_torch.tuning import get_tuner
 
-    rng = np.random.default_rng(SEED + 2)
-    x_np = np.sort(rng.uniform(0.0, 100.0, N_GRAD)).astype(np.float32)
-    y_np = (np.sin(0.3 * x_np) + 0.1 * rng.standard_normal(N_GRAD)).astype(np.float32)
-    kernel = pt.SquaredExponential(LENGTH_SCALE, SIGMA) + pt.measurement_only(
-        pt.IndependentNoise(NOISE, assume_unique=True)
-    )
-    model = pt.gp_from_covariance(kernel, jitter=JITTER)
+    x_np, y_np = bench_data(np, N_GRAD, SEED + 2)
+    model = bench_model(pt)
     data = pt.RegressionDataset.create(x_np, y_np, dtype=torch.float32)  # the card by default
 
     _build.reset_launch_counts()
     value, grad = value_grad(torch, model, data)
     counts, backwards = dict(_build.LAUNCHES), dict(_build.BACKWARDS)
     print(f"value+grad N={N_GRAD} f32: launches {counts}, panel backward calls {backwards}")
-    if (counts["radial_gram_diag"] != 1 or counts["panel_cholinv"] != PANELS_GRAD
-            or counts["radial_gram"] != 0 or backwards["panel_cholinv"] != PANELS_GRAD):
+    if (counts["radial_gram_diag"] != 1 or counts["panel_cholinv"] != PANELS_GRAD or counts["radial_gram"] != 0
+            or counts["radial_gram_cols"] != 0 or backwards["panel_cholinv"] != PANELS_GRAD):
         fail(f"value+grad launch counts {counts}, backward calls {backwards}")
     if grad.shape != (3,) or not torch.isfinite(grad).all():
         fail(f"value+grad gradient {grad}")
@@ -280,6 +336,29 @@ def check_value_grad(torch, np, pt, _build, card: str, args) -> dict:
         fail(f"the value+grad gate accepts a TF32 factorization: {tf32_errors}")
     print("value+grad TF32 control: the gate rejects it")
     del x64, y64
+
+    # the lazy-gram loop on the same evaluation: the same gates
+    config.CHOLESKY_ALGORITHM = "right_fused"
+    _build.reset_launch_counts()
+    lazy_value, lazy_grad = value_grad(torch, model, data)
+    lazy_counts, lazy_backwards = dict(_build.LAUNCHES), dict(_build.BACKWARDS)
+    lazy_errors = grad_errors(lazy_value, lazy_grad, ref)
+    lazy_times = []
+    for _ in range(GRAD_REPS):
+        t = time.perf_counter()
+        value_grad(torch, model, data)
+        lazy_times.append(time.perf_counter() - t)
+    config.CHOLESKY_ALGORITHM = "right"
+    print(f"lazy value+grad N={N_GRAD} f32: launches {lazy_counts}, panel backward calls {lazy_backwards}; "
+          f"-log_likelihood {lazy_value.item()!r}, rel err {lazy_errors[0]:.3e} (tol {GRAD_VALUE_REL_TOL:g}); "
+          f"gradient {lazy_grad.tolist()}, max err / max |grad| {lazy_errors[1]:.3e} (tol {GRAD_REL_TOL:g})")
+    print(f"[{card}] lazy NLML value+grad N={N_GRAD} f32: "
+          f"{statistics.median(lazy_times) * 1e3:.2f} ms/eval (median of {GRAD_REPS}; all {lazy_times})")
+    if (lazy_counts["radial_gram_cols"] != PANELS_GRAD or lazy_counts["radial_gram_diag"] != 0
+            or lazy_counts["panel_cholinv"] != PANELS_GRAD or lazy_backwards["panel_cholinv"] != PANELS_GRAD):
+        fail(f"lazy value+grad launch counts {lazy_counts}, backward calls {lazy_backwards}")
+    if not (lazy_errors[0] <= GRAD_VALUE_REL_TOL and lazy_errors[1] <= GRAD_REL_TOL):
+        fail(f"lazy value+grad disagrees with the f64 reference: {lazy_errors}")
 
     value_grad(torch, model, data)  # warm-up
     times = []
@@ -404,6 +483,239 @@ def check_f64_path(torch, np, pt, _build, model) -> None:
         fail(f"an f64 factorization launched the f32 panel kernel {launches} times")
 
 
+def check_column_blocks(torch, x, diag) -> float:
+    """The gram kernel's column blocks (rows j0.. of columns [j0, j0 + b),
+    the lazy loop's launch form) at three panels of the main path against
+    the plain gram of the same block: bitwise equal at D = 1, and the
+    leading diagonal exactly sigma^2 + diag.  Returns the largest
+    difference."""
+    from albatross_tpu_torch.ops.radial_gram import plain_radial_gram, radial_gram_cols
+
+    s32 = torch.tensor(SIGMA, dtype=torch.float32, device=x.device)
+    worst = 0.0
+    for j0 in COL_J0:
+        col = radial_gram_cols(x, j0, COL_B, LENGTH_SCALE, SIGMA, PROFILE, diag)
+        ref = plain_radial_gram(x[j0:], x[j0:j0 + COL_B], LENGTH_SCALE, SIGMA, PROFILE, diag[j0:j0 + COL_B])
+        err = (col - ref).abs().max().item()
+        worst = max(worst, err)
+        lead = torch.equal(col[:COL_B].diagonal(), s32 * s32 + diag[j0:j0 + COL_B])
+        print(f"gram column block j0={j0} ({N - j0}, {COL_B}) f32: max|kernel - plain| = {err:.3e}, bitwise "
+              f"equal {torch.equal(col, ref)}; leading diagonal exactly sigma^2 + diag: {lead}")
+        if col.shape != (N - j0, COL_B) or not torch.equal(col, ref):
+            fail(f"gram column block at j0={j0} differs from its plain version: {err}")
+        if not lead:
+            fail(f"gram column block at j0={j0}: leading diagonal is not sigma^2 + diag")
+    return worst
+
+
+def check_lazy_at_main_n(torch, pt, _build, config, model, data, card: str, ll_materialized: float) -> dict:
+    """CHOLESKY_ALGORITHM = "right_fused" at the main path's N: the NLML
+    against the materialized one, its launches, and the forward and
+    value+grad times and peak memory beside the materialized readings."""
+    config.CHOLESKY_ALGORITHM = "right_fused"
+    _build.reset_launch_counts()
+    ll = model.log_likelihood(data).item()
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    rel = abs(ll - ll_materialized) / abs(ll_materialized)
+    print(f"lazy vs materialized NLML N={N} f32: {ll!r} vs {ll_materialized!r}, rel diff {rel:.3e} "
+          f"(tol {LAZY_REL_TOL:g}); launches {counts}")
+    if not rel <= LAZY_REL_TOL:
+        fail(f"the lazy NLML differs from the materialized one: {rel}")
+    if counts["radial_gram_cols"] != PANELS or counts["radial_gram_diag"] != 0 or counts["panel_cholinv"] != PANELS:
+        fail(f"lazy NLML launch counts {counts}")
+    times = []
+    for _ in range(REPS):
+        t = time.perf_counter()
+        model.log_likelihood(data)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    torch.cuda.reset_peak_memory_stats()
+    value_grad(torch, model, data)
+    peak = torch.cuda.max_memory_allocated()
+    vg_times = []
+    for _ in range(BIG_GRAD_REPS):
+        t = time.perf_counter()
+        value_grad(torch, model, data)
+        vg_times.append(time.perf_counter() - t)
+    config.CHOLESKY_ALGORITHM = "right"
+    out = {"nlml_s": statistics.median(times), "value_grad_s": statistics.median(vg_times),
+           "value_grad_peak_gib": peak / 2**30}
+    print(f"[{card}] lazy NLML N={N} f32: {out['nlml_s']:.4f} s/eval (median of {REPS}; all {times}); "
+          f"value+grad {out['value_grad_s']:.4f} s/eval (median of {BIG_GRAD_REPS}; all {vg_times}), "
+          f"peak device memory {out['value_grad_peak_gib']:.2f} GiB")
+    return out
+
+
+def check_lazy_big(torch, np, pt, _build, config, card: str, args) -> dict:
+    """The lazy loop at N_LAZY by the default route (above
+    CHOLESKY_FUSED_MIN_N): launch counts, forward and value+grad times and
+    peak memory, and the f32 NLML against an f64 lazy NLML on the card from
+    the same inputs.  Returns its readings."""
+    if not (config.CHOLESKY_FUSED_MIN_N and N <= config.CHOLESKY_FUSED_MIN_N <= N_LAZY):
+        fail(f"CHOLESKY_FUSED_MIN_N = {config.CHOLESKY_FUSED_MIN_N} must lie in [{N}, {N_LAZY}]")
+    x_np, y_np = bench_data(np, N_LAZY, SEED + 3)
+    model = bench_model(pt)
+    data = pt.RegressionDataset.create(x_np, y_np, dtype=torch.float32)  # the card by default
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    ll = model.log_likelihood(data).item()
+    torch.cuda.synchronize()
+    fwd_peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = dict(_build.LAUNCHES)
+    print(f"lazy NLML N={N_LAZY} f32 (default route): {ll!r}; launches {counts}; peak device memory "
+          f"{fwd_peak:.2f} GiB")
+    if (counts["radial_gram_cols"] != PANELS_LAZY or counts["radial_gram_diag"] != 0
+            or counts["panel_cholinv"] != PANELS_LAZY or counts["radial_gram"] != 0):
+        fail(f"lazy NLML N={N_LAZY} launch counts {counts}")
+    times = []
+    for _ in range(LAZY_REPS):
+        t = time.perf_counter()
+        model.log_likelihood(data)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t = time.perf_counter()
+    value, grad = value_grad(torch, model, data)
+    vg_times = [time.perf_counter() - t]
+    vg_peak = torch.cuda.max_memory_allocated() / 2**30
+    vg_counts, vg_backwards = dict(_build.LAUNCHES), dict(_build.BACKWARDS)
+    print(f"lazy value+grad N={N_LAZY} f32: launches {vg_counts}, panel backward calls {vg_backwards}; "
+          f"peak device memory {vg_peak:.2f} GiB")
+    if (vg_counts["radial_gram_cols"] != PANELS_LAZY or vg_counts["radial_gram_diag"] != 0
+            or vg_counts["panel_cholinv"] != PANELS_LAZY or vg_backwards["panel_cholinv"] != PANELS_LAZY):
+        fail(f"lazy value+grad N={N_LAZY} launch counts {vg_counts}, backward calls {vg_backwards}")
+    if not (math.isfinite(value.item()) and grad.shape == (3,) and torch.isfinite(grad).all()):
+        fail(f"lazy value+grad N={N_LAZY} is not finite: {value.item()}, {grad}")
+    for _ in range(LAZY_REPS):
+        t = time.perf_counter()
+        value_grad(torch, model, data)
+        vg_times.append(time.perf_counter() - t)
+    s_eval, vg_eval = statistics.median(times), statistics.median(vg_times)
+    print(f"[{card}] lazy NLML N={N_LAZY} f32: {s_eval:.4f} s/eval (median of {LAZY_REPS}; all {times}), "
+          f"{nlml_flops(N_LAZY) / s_eval / 1e12:.3f} TFLOP/s by bench.py's nlml_flops")
+    print(f"[{card}] lazy NLML value+grad N={N_LAZY} f32: {vg_eval:.4f} s/eval (median of {len(vg_times)}, the "
+          f"counted run included; all {vg_times}), {3.0 * nlml_flops(N_LAZY) / vg_eval / 1e12:.3f} TFLOP/s by "
+          f"bench.py's 3x-forward accounting; peak device memory {vg_peak:.2f} GiB")
+    del value, grad
+
+    # f64 lazy forward on the card from the same inputs
+    data64 = pt.RegressionDataset.create(x_np.astype(np.float64), y_np.astype(np.float64), dtype=torch.float64)
+    _build.reset_launch_counts()
+    t = time.perf_counter()
+    ll64 = model.log_likelihood(data64).item()
+    f64_s = time.perf_counter() - t
+    rel = abs(ll - ll64) / abs(ll64)
+    print(f"lazy NLML N={N_LAZY}: f32 {ll!r}, f64 on the card {ll64!r} ({f64_s:.2f} s; launches "
+          f"{dict(_build.LAUNCHES)}), rel err {rel:.3e} (tol {NLML_REL_TOL:g})")
+    if not rel <= NLML_REL_TOL:
+        fail(f"the lazy f32 NLML at N={N_LAZY} disagrees with f64: {rel}")
+    del data64
+    if args.profile:
+        print_profile(torch, lambda: model.log_likelihood(data), f"lazy NLML N={N_LAZY}", card, 1)
+
+    # the column launches of one lazy NLML, timed as one group
+    from albatross_tpu_torch.ops.radial_gram import plain_radial_gram, radial_gram_cols
+
+    x = data.features
+    diag = torch.full((N_LAZY,), NOISE * NOISE + JITTER, dtype=torch.float32, device=x.device)
+    starts = range(0, N_LAZY, COL_B)
+
+    def group():
+        for j0 in starts:
+            radial_gram_cols(x, j0, COL_B, LENGTH_SCALE, SIGMA, PROFILE, diag)
+
+    def plain_group():
+        for j0 in starts:
+            plain_radial_gram(x[j0:], x[j0:j0 + COL_B], LENGTH_SCALE, SIGMA, PROFILE, diag[j0:j0 + COL_B])
+
+    out = {"launches": counts["radial_gram_cols"], "value_grad_launches": vg_counts["radial_gram_cols"],
+           "group_ms": cuda_ms(torch, group, batch=2), "group_plain_ms": cuda_ms(torch, plain_group, reps=3, batch=1)}
+    out["group_bound_ms"], out["group_bound_by"] = cols_group_bound(N_LAZY, COL_B)
+    print(f"[{card}] gram column launches of one lazy NLML N={N_LAZY} ({len(starts)} launches, "
+          f"({N_LAZY}, {COL_B}) down to ({COL_B}, {COL_B})): kernel {out['group_ms']:.4f} ms, plain "
+          f"{out['group_plain_ms']:.4f} ms, bound {out['group_bound_ms']:.4f} ms by {out['group_bound_by']} "
+          f"({out['group_bound_ms'] / out['group_ms']:.1%} of it)")
+    return out
+
+
+def cv_errors(torch, got: dict, ref: dict) -> dict:
+    """Largest |f32 - f64| over the largest |f64| entry, for each output."""
+    return {k: ((got[k].double() - ref[k]).abs().max() / ref[k].abs().max()).item() for k in ref}
+
+
+def check_cv(torch, np, pt, _build, card: str, data_main) -> None:
+    """Fast cross-validation at N_GRAD (the value+grad phase's seed 2 data):
+    LOO marginals (the vectorized path), LOGO of N_GRAD / CV_GROUP uniform
+    groups as joints (the batched path) and a ragged LOGO as marginals (one
+    group at a time), f32 against the same calls in f64 on the card, with a
+    TF32 control; then LOO timed at N."""
+    from albatross_tpu_torch.indexing import LeaveOneOutGrouper
+
+    x_np, y_np = bench_data(np, N_GRAD, SEED + 2)
+    model = bench_model(pt)
+    groupers = {
+        "loo": LeaveOneOutGrouper(),
+        "logo": lambda features: np.arange(features.shape[0]) // CV_GROUP,
+        "ragged": lambda features: np.floor(features.cpu().numpy() / CV_RAGGED_WIDTH).astype(np.int64),
+    }
+
+    def run(data) -> dict:
+        cv = model.cross_validate()
+        loo = cv.predict(data, groupers["loo"]).marginals()
+        logo = cv.predict(data, groupers["logo"]).joints()
+        ragged = cv.predict(data, groupers["ragged"]).marginals()
+        torch.cuda.synchronize()
+        if loo.means.shape != (N_GRAD, 1) or logo.covariances.shape != (N_GRAD // CV_GROUP, CV_GROUP, CV_GROUP):
+            fail(f"CV shapes: LOO {tuple(loo.means.shape)}, LOGO {tuple(logo.covariances.shape)}")
+        return {"loo mean": loo.means, "loo variance": loo.variances, "logo mean": logo.means,
+                "logo covariance": logo.covariances,
+                "ragged mean": torch.cat([m.mean for m in ragged.values()]),
+                "ragged variance": torch.cat([m.variance for m in ragged.values()])}
+
+    data = pt.RegressionDataset.create(x_np, y_np, dtype=torch.float32)
+    _build.reset_launch_counts()
+    got = run(data)
+    counts = dict(_build.LAUNCHES)
+    ref = run(pt.RegressionDataset.create(x_np.astype(np.float64), y_np.astype(np.float64), dtype=torch.float64))
+    n_ragged = len(pt.indexing.group_by(data, groupers["ragged"]).indexers())
+    errors = cv_errors(torch, got, ref)
+    print(f"CV N={N_GRAD} f32 vs f64 on the card (LOO; LOGO of {N_GRAD // CV_GROUP} groups of {CV_GROUP}; "
+          f"ragged LOGO of {n_ragged} groups): " + ", ".join(f"{k} {v:.3e} (tol {CV_TOLS[k]:g})"
+                                                             for k, v in errors.items()))
+    print(f"CV launches (three fits): {counts}")
+    if not all(math.isfinite(v) for v in errors.values()):
+        fail(f"CV results are not finite: {errors}")
+    if counts["radial_gram_diag"] != 3 or counts["panel_cholinv"] != 3 * PANELS_GRAD:
+        fail(f"CV launch counts {counts}")
+    if not all(errors[k] <= CV_TOLS[k] for k in errors):
+        fail(f"CV disagrees with f64: {errors}")
+    torch.set_float32_matmul_precision("high")
+    tf32 = cv_errors(torch, run(data), ref)
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("CV TF32 control: " + ", ".join(f"{k} {v:.3e}" for k, v in tf32.items()))
+    failed = [k for k in tf32 if not tf32[k] <= CV_TOLS[k]]
+    if not failed:
+        fail(f"the CV gates accept a TF32 factorization: {tf32}")
+    print(f"CV TF32 control: rejected by the gates of {failed}")
+    del got, ref
+
+    times = []
+    for _ in range(CV_REPS):
+        t = time.perf_counter()
+        loo = model.cross_validate().predict(data_main, groupers["loo"]).marginals()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    if loo.means.shape != (N, 1) or not (torch.isfinite(loo.means).all() and (loo.variances > 0).all()):
+        fail(f"LOO at N={N}: shape {tuple(loo.means.shape)}, finite {torch.isfinite(loo.means).all().item()}")
+    print(f"[{card}] fast LOO marginals N={N} f32 (fit, L^-1, grouping): {statistics.median(times):.4f} s "
+          f"(median of {CV_REPS}; all {times})")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -423,7 +735,7 @@ def main() -> int:
     import numpy as np
 
     import albatross_tpu_torch as pt
-    from albatross_tpu_torch import _build
+    from albatross_tpu_torch import _build, config
     from albatross_tpu_torch.ops.panel_cholinv import panel_cholinv, panel_cholinv_backward, plain_panel_cholinv
     from albatross_tpu_torch.ops.radial_gram import plain_radial_gram, radial_gram
 
@@ -452,7 +764,7 @@ def main() -> int:
     xs = torch.as_tensor(xs_np, device=dev)
     diag_value = NOISE * NOISE + JITTER
     diag = torch.full((N,), diag_value, dtype=torch.float32, device=dev)
-    profile = "squared_exponential"
+    profile = PROFILE
     results = {}
 
     # -- kernels against their plain versions ----------------------------
@@ -477,6 +789,7 @@ def main() -> int:
     if not err <= GRAM_F32_TOL * SIGMA**2:
         fail(f"cross gram disagrees with its plain version: {err}")
     results["radial_gram"] = {"max_abs_err": err}
+    cols_err = check_column_blocks(torch, x, diag)
 
     g = torch.Generator(device="cpu").manual_seed(SEED)
     X16 = (10.0 * torch.rand((4096, 16), generator=g)).to(dev)
@@ -553,10 +866,7 @@ def main() -> int:
     print(f"panel b=1024 main path's first panel, rel err vs f64: {'; '.join(line)}")
 
     # -- the main path, through the public API -----------------------------
-    kernel = pt.SquaredExponential(LENGTH_SCALE, SIGMA) + pt.measurement_only(
-        pt.IndependentNoise(NOISE, assume_unique=True)
-    )
-    model = pt.gp_from_covariance(kernel, jitter=JITTER)
+    model = bench_model(pt)
     data = pt.RegressionDataset.create(x_np, y_np, dtype=torch.float32)  # the card by default
     if not data.features.is_cuda:
         fail(f"numpy data without a device landed on {data.features.device}, not the card")
@@ -571,7 +881,8 @@ def main() -> int:
     path_counts = dict(_build.LAUNCHES)
     print(f"launches in log_likelihood: {nlml_counts}")
     print(f"launches in the whole main path (NLML + fit + predict): {path_counts}")
-    if nlml_counts["radial_gram_diag"] != 1 or nlml_counts["panel_cholinv"] != PANELS:
+    if (nlml_counts["radial_gram_diag"] != 1 or nlml_counts["panel_cholinv"] != PANELS
+            or nlml_counts["radial_gram_cols"] != 0):
         fail(f"log_likelihood launch counts {nlml_counts}")
     if (path_counts["radial_gram"] < 1 or path_counts["radial_gram_diag"] != 2
             or path_counts["panel_cholinv"] != 2 * PANELS):
@@ -627,7 +938,7 @@ def main() -> int:
         fail(f"the end-to-end gates accept a TF32 factorization: {tf32_errors}")
     print("TF32 control: the end-to-end gates reject it")
     check_f64_path(torch, np, pt, _build, model)
-    grad_counts = check_value_grad(torch, np, pt, _build, card, args)
+    grad_counts = check_value_grad(torch, np, pt, _build, config, card, args)
 
     # -- timings (after the counted run) -----------------------------------
     def nlml_once():
@@ -697,6 +1008,9 @@ def main() -> int:
     time_value_grad_big(torch, model, data, card, args)
     if args.profile:
         print_profile(torch, lambda: model.log_likelihood(data), f"NLML N={N}", card, 2)
+    check_lazy_at_main_n(torch, pt, _build, config, model, data, card, ll.item())
+    check_cv(torch, np, pt, _build, card, data)
+    lazy = check_lazy_big(torch, np, pt, _build, config, card, args)
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
@@ -713,6 +1027,13 @@ def main() -> int:
             entry["value_grad_backward_calls"] = grad_counts["backwards"][name]
         if "write_floor_ms" in r:
             entry["write_floor_ms"] = r["write_floor_ms"]
+        if name == "radial_gram_diag":  # the lazy loop's column launches of the same kernel
+            entry.update({
+                "lazy_launches": lazy["launches"], "lazy_value_grad_launches": lazy["value_grad_launches"],
+                "lazy_group_ms": lazy["group_ms"], "lazy_group_plain_ms": lazy["group_plain_ms"],
+                "lazy_group_bound_ms": lazy["group_bound_ms"], "lazy_group_bound_by": lazy["group_bound_by"],
+                "lazy_max_abs_err": cols_err,
+            })
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -16,10 +16,11 @@ import pytest
 import torch
 
 import albatross_tpu_torch as pt
-from albatross_tpu_torch import _build
+from albatross_tpu_torch import _build, config
+from albatross_tpu_torch.indexing import KFoldGrouper, LeaveOneOutGrouper
 from albatross_tpu_torch.ops.blocked_cholesky import blocked_cholesky_cols
 from albatross_tpu_torch.ops.panel_cholinv import panel_cholinv, plain_panel_cholinv
-from albatross_tpu_torch.ops.radial_gram import PROFILES, plain_radial_gram, radial_gram
+from albatross_tpu_torch.ops.radial_gram import PROFILES, plain_radial_gram, radial_gram, radial_gram_cols
 
 pytestmark = pytest.mark.cuda
 
@@ -56,6 +57,50 @@ def test_gram_kernel_matches_plain(cuda, profile, d, dtype, shape):
     assert torch.equal(K.diagonal(), s * s + diag)
     ref_diag = plain_radial_gram(X.double(), X.double(), 4.0, 1.5, profile, diag.double())
     torch.testing.assert_close(K.double(), ref_diag, rtol=0, atol=atol)
+
+
+# (n, j0, b): blocks one tile high and many, widths m % 4 = 0, 1, 2, 3, and
+# a last panel narrower than the rest
+@pytest.mark.parametrize("shape", [(2600, 0, 1024), (2600, 2048, 552), (333, 100, 129), (700, 640, 58),
+                                   (300, 17, 3)])
+@pytest.mark.parametrize("profile", PROFILES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gram_column_block_matches_plain(cuda, profile, dtype, shape):
+    """The lazy loop's launch form: rows j0.. of columns [j0, j0 + b) with
+    the diagonal on the block's leading b x b diagonal, against the f64
+    plain gram of the same block at the square gram's tolerances (bitwise
+    against the plain gram of the same dtype for the squared exponential,
+    the main path's profile), and the leading diagonal exactly
+    sigma^2 + diag."""
+    n, j0, b = shape
+    g = torch.Generator().manual_seed(n + j0)
+    x = (30.0 * torch.rand(n, generator=g, dtype=torch.float64)).to(cuda, dtype)
+    diag = torch.rand(n, generator=g, dtype=torch.float64).to(cuda, dtype)
+    _build.reset_launch_counts()
+    col = radial_gram_cols(x, j0, b, 4.0, 1.5, profile, diag)
+    assert _build.LAUNCHES["radial_gram_cols"] == 1 and _build.LAUNCHES["radial_gram_diag"] == 0
+    assert col.shape == (n - j0, b)
+    x64, d64 = x.double()[:, None], diag.double()
+    ref = plain_radial_gram(x64[j0:], x64[j0:j0 + b], 4.0, 1.5, profile, d64[j0:j0 + b])
+    atol = 1e-5 if dtype == torch.float32 else 1e-12
+    torch.testing.assert_close(col.double(), ref, rtol=0, atol=atol)
+    if profile == "squared_exponential":
+        assert torch.equal(col, plain_radial_gram(x[j0:, None], x[j0:j0 + b, None], 4.0, 1.5, profile,
+                                                  diag[j0:j0 + b]))
+    s = torch.tensor(1.5, dtype=dtype, device=cuda)
+    assert torch.equal(col[:b].diagonal(), s * s + diag[j0:j0 + b])
+
+
+def test_gram_rejects_a_wrong_diagonal_length(cuda):
+    """A diagonal is min(N, M) long; any other length raises."""
+    X = torch.rand((300, 1), device=cuda)
+    Y = X[:100].clone()
+    radial_gram(X, Y, 1.0, 1.0, diag_add=torch.ones(100, device=cuda))  # leading diagonal
+    for length in (300, 99, 101):
+        with pytest.raises(ValueError, match="min"):
+            radial_gram(X, Y, 1.0, 1.0, diag_add=torch.ones(length, device=cuda))
+    with pytest.raises(ValueError, match="min"):
+        radial_gram(X, X, 1.0, 1.0, diag_add=torch.ones(299, device=cuda))
 
 
 def test_gram_kernel_rows_beyond_a_grid_dimension(cuda):
@@ -203,6 +248,41 @@ def test_value_grad_on_cuda_matches_cpu_f64(cuda, dtype):
         assert abs(value - value_ref) < 1e-6 * 3072 and err < 1e-4
     else:
         assert abs(value - value_ref) <= 1e-9 * abs(value_ref) and err < 1e-9
+
+
+@pytest.mark.parametrize("n", [3072, 3000])
+def test_lazy_value_grad_on_cuda_matches_cpu_f64(cuda, n, monkeypatch):
+    """The lazy-gram loop's value+grad on CUDA f32 (one column launch and
+    one panel a panel; n = 3000 pads its last panel to 1024) against f64 on
+    the CPU, with the gates of test_value_grad_on_cuda_matches_cpu_f64."""
+    model, x, y = _bench_gp(n, seed=5)
+    on_cpu = pt.RegressionDataset.create(x, y, device="cpu", dtype=torch.float64)
+    on_gpu = pt.RegressionDataset.create(x, y, device="cuda", dtype=torch.float32)
+    monkeypatch.setattr(config, "CHOLESKY_ALGORITHM", "right_fused")
+    _build.reset_launch_counts()
+    value, grad = _value_grad(model, on_gpu)
+    assert _build.LAUNCHES["radial_gram_cols"] == 3 and _build.LAUNCHES["radial_gram_diag"] == 0
+    assert _build.LAUNCHES["panel_cholinv"] == 3 and _build.BACKWARDS["panel_cholinv"] == 3
+    value_ref, grad_ref = _value_grad(model, on_cpu)
+    assert torch.isfinite(grad).all()
+    err = ((grad.cpu() - grad_ref).abs().max() / grad_ref.abs().max()).item()
+    assert abs(value - value_ref) < 1e-6 * n and err < 1e-4
+
+
+@pytest.mark.parametrize("grouper", [LeaveOneOutGrouper(), KFoldGrouper(48)])
+def test_fast_cv_on_cuda_matches_cpu_f64(cuda, grouper):
+    """Fast LOO and a LOGO of 48 uniform groups (the batched path), f32 on
+    CUDA against f64 on the CPU.  diag(A^-1) carries the f32 error of the
+    factor times the condition number of the bench panels (~1e4): 1e-2 of
+    the largest f64 entry leaves a margin and still fails a wrong path."""
+    model, x, y = _bench_gp(3072, seed=6)
+    on_cpu = pt.RegressionDataset.create(x, y, device="cpu", dtype=torch.float64)
+    on_gpu = pt.RegressionDataset.create(x, y, device="cuda", dtype=torch.float32)
+    got = model.cross_validate().predict(on_gpu, grouper).marginals()
+    ref = model.cross_validate().predict(on_cpu, grouper).marginals()
+    for a, r in ((got.means, ref.means), (got.variances, ref.variances)):
+        assert a.shape == r.shape and torch.isfinite(a).all()
+        assert ((a.double().cpu() - r).abs().max() / r.abs().max()).item() < 1e-2
 
 
 def test_panel_kernel_on_main_path_panel(cuda):
