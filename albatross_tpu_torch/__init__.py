@@ -1,11 +1,14 @@
-"""albatross_tpu_torch -- the exact-GP main path of albatross_tpu in PyTorch.
+"""albatross_tpu_torch -- albatross_tpu's Gaussian processes in PyTorch.
 
 A port of the JAX package ``albatross_tpu`` that keeps its module paths and
 public names: covariance DSL (radial kernels, noise, measurement-only
 terms), exact GP fit / predict / log-likelihood and its gradient (with
-the lazy-gram loop for large N), fast LOO / LOGO cross-validation
-(``evaluation``, ``indexing``), the tunable-parameter round trip and the
-tuners (``tuning``), and the blocked Cholesky beneath them.  Its hot
+the lazy-gram loop for large N), its online update, serving mode
+(explicit inverse), fit_from_prediction and safe factorization, the
+sparse FITC / PITC GP, the null, least-squares, conditional and adapted
+models, fast LOO / LOGO cross-validation (``evaluation``, ``indexing``),
+the tunable-parameter round trip and the tuners (``tuning``), and the
+blocked Cholesky and block solvers beneath them.  Its hot
 spots are hand-written CUDA kernels for Hopper (``csrc/``), built with
 nvcc at first use; CPU tensors take each kernel's plain PyTorch version.
 Importing this package never imports JAX.
@@ -41,7 +44,22 @@ from .kernels import (
     as_measurement,
     measurement_only,
 )
-from .models import FitModel, GaussianProcess, gp_from_covariance
+from .models import (
+    ConditionalGaussian,
+    FitModel,
+    GaussianProcess,
+    LeastSquares,
+    LinearRegression,
+    NullModel,
+    SparseGaussianProcessRegression,
+    StateSpaceInducingPointStrategy,
+    UniformlySpacedInducingPoints,
+    gp_from_covariance,
+    gp_from_covariance_and_mean,
+    rebase_inducing_points,
+    sparse_gp_from_covariance,
+    sparse_gp_from_covariance_and_mean,
+)
 
 __version__ = "0.1.0"
 __all__ = [k for k in dir() if not k.startswith("_")]

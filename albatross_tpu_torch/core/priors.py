@@ -20,7 +20,11 @@ EPSILON = 2.220446049250313e-16
 
 
 def _as_float_tensor(x) -> torch.Tensor:
-    x = torch.as_tensor(x)
+    """A tensor as it is (integers to the default dtype); a Python or numpy
+    number as f64, the JAX package's 64-bit mode (a default-dtype f32 would
+    round a log-pdf such as -log(1.8e308) at the sixth digit)."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(x, dtype=torch.float64)
     return x if x.is_floating_point() else x.to(torch.get_default_dtype())
 
 

@@ -68,6 +68,11 @@ class CovarianceFunction(Module):
     def __rmul__(self, other):
         return ProductKernel(_as_kernel(other), self)
 
+    def state_space_representation(self, X) -> Optional[torch.Tensor]:
+        """1-D inducing grid for this kernel over features X, or None when
+        the kernel has none."""
+        return None
+
 
 def _combine(a, b, op):
     if a is None:
@@ -103,6 +108,9 @@ class SumKernel(CovarianceFunction):
     def _symmetric_exact(self, X):
         return self.lhs._symmetric_exact(X) and self.rhs._symmetric_exact(X)
 
+    def state_space_representation(self, X):
+        return _concat_ssr(self.lhs.state_space_representation(X), self.rhs.state_space_representation(X))
+
 
 class ProductKernel(CovarianceFunction):
     """k1 * k2; if only one side is defined for a pair, it acts alone."""
@@ -129,6 +137,14 @@ class ProductKernel(CovarianceFunction):
 
     def _symmetric_exact(self, X):
         return self.lhs._symmetric_exact(X) and self.rhs._symmetric_exact(X)
+
+    def state_space_representation(self, X):
+        return _concat_ssr(self.lhs.state_space_representation(X), self.rhs.state_space_representation(X))
+
+
+def _concat_ssr(a, b):
+    """Both sides' grids concatenated; a side without one drops out."""
+    return _combine(a, b, lambda a, b: torch.cat([torch.atleast_1d(a), torch.atleast_1d(b)]))
 
 
 def _as_kernel(value) -> CovarianceFunction:

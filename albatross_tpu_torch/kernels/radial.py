@@ -107,6 +107,17 @@ class _RadialKernel(CovarianceFunction):
         d = self.distance_metric.diag(X)
         return self._profile(d, ls, sigma)
 
+    def state_space_representation(self, X):
+        """Uniform 1-D grid over the range of X with about
+        ``_ssr_points_per_length_scale`` points per length scale (at least
+        3), in X's dtype and on its device.  X and the length scale are read
+        on the host: the grid's size depends on them."""
+        ls, _ = self._params_values()
+        x = X.detach().reshape(-1).cpu()
+        lo, hi = float(x.min()), float(x.max())
+        n = max(3, int(math.ceil(self._ssr_points_per_length_scale * (hi - lo) / host_float(ls))))
+        return torch.linspace(lo, hi, n, dtype=X.dtype, device=X.device)
+
 
 class SquaredExponential(_RadialKernel):
     """sigma^2 exp(-(d/l)^2)."""
@@ -114,6 +125,7 @@ class SquaredExponential(_RadialKernel):
     _length_scale_param = "squared_exponential_length_scale"
     _sigma_param = "sigma_squared_exponential"
     _profile_name = "squared_exponential"
+    _ssr_points_per_length_scale = 10.0
 
     def __init__(self, length_scale=DEFAULT_LENGTH_SCALE, sigma=DEFAULT_RADIAL_SIGMA,
                  distance_metric=EuclideanDistance()):
@@ -129,6 +141,7 @@ class Exponential(_RadialKernel):
     _length_scale_param = "exponential_length_scale"
     _sigma_param = "sigma_exponential"
     _profile_name = "exponential"
+    _ssr_points_per_length_scale = 20.0
 
     def __init__(self, length_scale=DEFAULT_LENGTH_SCALE, sigma=DEFAULT_RADIAL_SIGMA,
                  distance_metric=EuclideanDistance()):
@@ -152,6 +165,9 @@ class Matern32(_RadialKernel):
     def _profile(self, distance, length_scale, sigma):
         return matern_32_covariance(distance, length_scale, sigma)
 
+    def state_space_representation(self, X):
+        return None
+
 
 class Matern52(_RadialKernel):
     """sigma^2 (1 + sqrt(5) d/l + 5 d^2 / 3 l^2) exp(-sqrt(5) d/l)."""
@@ -166,3 +182,6 @@ class Matern52(_RadialKernel):
 
     def _profile(self, distance, length_scale, sigma):
         return matern_52_covariance(distance, length_scale, sigma)
+
+    def state_space_representation(self, X):
+        return None

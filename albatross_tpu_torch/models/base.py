@@ -3,7 +3,9 @@
 Counterpart of ``albatross_tpu.models.base``: a model implements
 ``_fit_impl(features, targets)`` plus any of ``_predict_mean`` /
 ``_predict_marginal`` / ``_predict_joint``, and ``Prediction`` downgrades
-joint -> marginal -> mean to the cheapest one the model offers.
+joint -> marginal -> mean to the cheapest one the model offers.  A model
+that implements ``_update_impl(fit, features, targets)`` takes online
+updates through ``FitModel.update``.
 """
 
 from __future__ import annotations
@@ -29,6 +31,9 @@ class ModelBase(Module):
             targets = MarginalDistribution.create(targets)
         return FitModel(self, self._fit_impl(features, targets))
 
+    def fit_from_prediction(self, features, prediction: JointDistribution):
+        raise NotImplementedError(f"{type(self).__name__} does not support fit_from_prediction")
+
     def cross_validate(self):
         from ..evaluation.cross_validation import CrossValidation
 
@@ -49,8 +54,37 @@ class FitModel:
     def predict(self, features) -> "Prediction":
         return Prediction(self.model, self.fit, features)
 
+    def predict_with_measurement_noise(self, features) -> "Prediction":
+        """Predict at ``features`` as measurements: measurement-only terms
+        (observation noise) count in the predicted covariance."""
+        from ..kernels.features import as_measurement
+
+        return Prediction(self.model, self.fit, as_measurement(features))
+
+    def update(self, features, targets=None) -> "FitModel":
+        """Online update with new observations: (features, targets) or a
+        dataset."""
+        if targets is None and isinstance(features, RegressionDataset):
+            features, targets = features.features, features.targets
+        if not isinstance(targets, MarginalDistribution):
+            targets = MarginalDistribution.create(targets)
+        return FitModel(self.model, self.model._update_impl(self.fit, features, targets))
+
     def get_fit(self):
         return self.fit
+
+    def for_serving(self) -> "FitModel":
+        """The fit with its factorization swapped for an explicit inverse
+        (``CholeskyFactor.to_direct_inverse``): predictions solve by one
+        product, at the cost of one O(N^3) inversion up front.  A fit whose
+        training covariance has no explicit-inverse form (a sparse fit, or
+        an exact fit after ``update``) comes back unchanged."""
+        from .gp import GPFit
+
+        cov = getattr(self.fit, "train_covariance", None)
+        if not isinstance(self.fit, GPFit) or not hasattr(cov, "to_direct_inverse"):
+            return self
+        return FitModel(self.model, dataclasses.replace(self.fit, train_covariance=cov.to_direct_inverse()))
 
 
 class Prediction:

@@ -14,6 +14,12 @@ Counterpart of ``albatross_tpu.models.gp`` (main path):
   ``config.CHOLESKY_FUSED_MIN_N`` points on (or with
   ``CHOLESKY_ALGORITHM = "right_fused"``) a kernel of the fused pattern
   takes the lazy-gram loop, which never holds the N x N covariance;
+  ``safe_factorization`` materializes the covariance and escalates the
+  jitter until it factors (CholeskyFactor.factorize_safe);
+* update: grow the fit by new observations through the Schur complement
+  (ops/block.py BlockSymmetric), without refactorizing the old block;
+* fit_from_prediction: a fit whose predictions at the given features
+  reproduce a joint prediction (ExplainedCovariance);
 * cross_validated_predictions: fast LOO / LOGO from one fit.
 """
 
@@ -26,26 +32,29 @@ from typing import Any, Optional
 import torch
 
 from .. import config
-from ..core.dataset import RegressionDataset
+from ..core.dataset import RegressionDataset, concatenate_features
 from ..core.distributions import JointDistribution, MarginalDistribution
 from ..core.parameters import host_float, map_join
 from ..kernels.base import CovarianceFunction
 from ..kernels.features import Measurement, as_measurement
 from ..kernels.means import MeanFunction, ZeroMean
-from ..ops.linalg import CholeskyFactor
+from ..ops.block import build_block_symmetric
+from ..ops.linalg import CholeskyFactor, ExplainedCovariance
 from ..ops.radial_gram import fused_training_covariance, match_fused_training_cov, radial_gram_cols
-from .base import ModelBase
+from .base import FitModel, ModelBase
 
 LOG_2PI = math.log(2.0 * math.pi)
 
 
 @dataclasses.dataclass(frozen=True)
 class GPFit:
-    """Trained GP state: features, factorized training covariance, and the
-    information vector v = K^-1 y."""
+    """Trained GP state: features, the training covariance in a form that
+    solves (a CholeskyFactor, or after ``update`` a BlockSymmetric, after
+    ``for_serving`` a DirectInverse, from ``fit_from_prediction`` an
+    ExplainedCovariance), and the information vector v = K^-1 y."""
 
     train_features: Any
-    train_covariance: CholeskyFactor
+    train_covariance: Any
     information: torch.Tensor
 
 
@@ -79,6 +88,11 @@ def _nll_from_whitened(log_det, white):
     """1/2 (log|K| + ||L^-1 dev||^2 + n log 2 pi); no target variance."""
     n = white.shape[0]
     return 0.5 * (log_det + torch.sum(white * white) + n * LOG_2PI)
+
+
+def negative_log_likelihood(deviation, chol: CholeskyFactor):
+    """1/2 (log|K| + dev^T K^-1 dev + n log 2 pi) from K's factor."""
+    return _nll_from_whitened(chol.log_determinant(), chol.sqrt_solve(deviation))
 
 
 def _make_gram_col_fn(x2, ls, sigma, diag_add, profile):
@@ -119,11 +133,14 @@ class GaussianProcess(ModelBase):
         mean: Optional[MeanFunction] = None,
         model_name: Optional[str] = None,
         jitter: float = 0.0,
+        safe_factorization: bool = False,
     ):
         self.covariance_function = covariance
         self.mean_function = mean if mean is not None else ZeroMean()
         self._model_name = model_name
         self.jitter = jitter
+        # escalate the jitter until the training covariance factors
+        self.safe_factorization = safe_factorization
 
     @property
     def model_name(self) -> str:
@@ -135,6 +152,9 @@ class GaussianProcess(ModelBase):
         return map_join(
             self.mean_function.get_params(), self.covariance_function.get_params()
         )
+
+    def compute_train_covariance(self, features) -> torch.Tensor:
+        return self.covariance_function(as_measurement(features))
 
     def _training_covariance(self, measurements, target_variance):
         """(training covariance, jitter already included).  Kernels that
@@ -159,8 +179,10 @@ class GaussianProcess(ModelBase):
         return GPFit(features, chol, chol.solve(zero_mean))
 
     def _factorize(self, cov, jitter_applied: bool = False) -> CholeskyFactor:
-        # covariances from the DSL are symmetric by construction
         jitter = 0.0 if jitter_applied else self.jitter
+        if self.safe_factorization:
+            return CholeskyFactor.factorize_safe(cov, initial_jitter=jitter)
+        # covariances from the DSL are symmetric by construction
         return CholeskyFactor.factorize(cov, jitter=jitter, assume_symmetric=True)
 
     def _cross(self, fit: GPFit, features):
@@ -187,6 +209,37 @@ class GaussianProcess(ModelBase):
         return JointDistribution(
             self.mean_function.add_to(features, pred.mean), pred.covariance
         )
+
+    def _update_impl(self, fit: GPFit, features, targets: MarginalDistribution) -> GPFit:
+        """The fit grown by (features, targets): the new block's Schur
+        complement is the predicted joint covariance plus the new target
+        variance.  The new block is predicted from unwrapped features, so
+        the update equals a refit only for kernels without measurement-only
+        terms, as in the JAX package."""
+        pred = self._predict_joint(features, fit)
+        delta = targets.mean - pred.mean
+        S = pred.covariance
+        if targets.variance is not None:
+            S = S + torch.diag(targets.variance)
+        S_chol = CholeskyFactor.factorize(S, jitter=self.jitter)
+        cross = self.covariance_function.matrix_or_none(fit.train_features, features)
+        new_covariance = build_block_symmetric(fit.train_covariance, cross, S_chol)
+        Si_delta = S_chol.solve(delta)
+        top = fit.information - new_covariance.Ai_B @ Si_delta
+        return GPFit(concatenate_features([fit.train_features, features]), new_covariance,
+                     torch.cat([top, Si_delta]))
+
+    def fit_from_prediction(self, features, prediction: JointDistribution) -> FitModel:
+        """A fit whose predictions at ``features`` reproduce ``prediction``:
+        C = K (K - P)^-1 K as the training covariance.  The mean function
+        is removed from the prediction first, or predictions would add it
+        twice."""
+        zero_mean = self.mean_function.remove_from(features, prediction.mean)
+        prior = self.covariance_function(features)
+        prior_chol = CholeskyFactor.factorize(prior, jitter=self.jitter)
+        fit = GPFit(features, ExplainedCovariance(prior, prior - prediction.covariance),
+                    prior_chol.solve(zero_mean))
+        return FitModel(self, fit)
 
     def prior(self, features) -> JointDistribution:
         measurements = as_measurement(features)
@@ -226,7 +279,8 @@ class GaussianProcess(ModelBase):
         covariance is materialized, except on the lazy-gram loop: from
         ``config.CHOLESKY_FUSED_MIN_N`` points on, or always with
         ``CHOLESKY_ALGORITHM = "right_fused"``, above n = 2048 and for a
-        kernel of the fused pattern."""
+        kernel of the fused pattern.  With ``safe_factorization`` the
+        covariance is always materialized and factored by factorize_safe."""
         measurements = as_measurement(dataset.features)
         zero_mean = self.mean_function.remove_from(measurements, dataset.targets.mean)
         n = zero_mean.shape[0]
@@ -234,17 +288,19 @@ class GaussianProcess(ModelBase):
         if algorithm == "right" and config.CHOLESKY_FUSED_MIN_N and n >= config.CHOLESKY_FUSED_MIN_N:
             algorithm = "right_fused"
         pieces = None
-        if algorithm == "right_fused" and n > 2048:
+        if algorithm == "right_fused" and n > 2048 and not self.safe_factorization:
             pieces = self._training_cov_fused_pieces(measurements)
         if pieces is not None:
             x2, ls, sigma, diag_add, profile = pieces
-            log_det, white = _fused_gram_nlml(x2, ls, sigma, diag_add, zero_mean, profile=profile)
+            ll = -_nll_from_whitened(*_fused_gram_nlml(x2, ls, sigma, diag_add, zero_mean, profile=profile))
+        elif self.safe_factorization:
+            cov, fused = self._training_covariance(measurements, None)
+            ll = -negative_log_likelihood(zero_mean, self._factorize(cov, jitter_applied=fused))
         else:
             cov, fused = self._training_covariance(measurements, None)
-            log_det, white = CholeskyFactor.nlml_terms(
+            ll = -_nll_from_whitened(*CholeskyFactor.nlml_terms(
                 cov, zero_mean, jitter=0.0 if fused else self.jitter, assume_symmetric=True
-            )
-        ll = -_nll_from_whitened(log_det, white)
+            ))
         return ll + self.prior_log_likelihood().to(device=ll.device, dtype=ll.dtype)
 
     def cross_validated_predictions(self, dataset: RegressionDataset, indexers, predict_type):
@@ -263,3 +319,9 @@ def gp_from_covariance(
     covariance: CovarianceFunction, model_name: Optional[str] = None, **kwargs
 ) -> GaussianProcess:
     return GaussianProcess(covariance, model_name=model_name, **kwargs)
+
+
+def gp_from_covariance_and_mean(
+    covariance: CovarianceFunction, mean: MeanFunction, model_name: Optional[str] = None, **kwargs
+) -> GaussianProcess:
+    return GaussianProcess(covariance, mean, model_name=model_name, **kwargs)

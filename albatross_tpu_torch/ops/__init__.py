@@ -1,3 +1,18 @@
+from .block import (
+    BlockDiagonal,
+    BlockDiagonalCholesky,
+    BlockSymmetric,
+    DiagonalCholesky,
+    block_accumulate,
+    block_diag_solve,
+    block_inner_product,
+    block_product,
+    block_subtract,
+    block_sum,
+    build_block_symmetric,
+    build_block_symmetric_from_C,
+    pad_blocks,
+)
 from .blocked_cholesky import (
     auto_block_size,
     blocked_cholesky,
@@ -7,7 +22,7 @@ from .blocked_cholesky import (
     cuda_block_size,
 )
 from .compensated import accurate_log, accurate_sum_of_logs, dw_sum, two_prod, two_sum
-from .linalg import CholeskyFactor
+from .linalg import CholeskyFactor, DirectInverse, ExplainedCovariance, truncated_psd_solve, vertical_stack
 from .nlml import blocked_lauum, spd_inverse_from_factor, tri_inverse_full
 from .panel_cholinv import panel_cholinv, plain_panel_cholinv
 from .radial_gram import (

@@ -1,11 +1,15 @@
 """Dense Cholesky factorization and solves.
 
-Counterpart of ``CholeskyFactor`` in ``albatross_tpu.ops.linalg``: factorize,
-factorize_whiten, nlml_terms (the materialized K, or the lazy-gram loop
-with ``col_fn``), the solves, the log-determinant, and the inverse pieces
-behind fast cross-validation (ops/nlml.py).  Above n = 2048 the
+Counterpart of ``albatross_tpu.ops.linalg``: ``CholeskyFactor`` with
+factorize, factorize_whiten, nlml_terms (the materialized K, or the
+lazy-gram loop with ``col_fn``), factorize_safe (jitter escalation), the
+solves, the log-determinant, the inverse pieces behind fast
+cross-validation (ops/nlml.py) and the serving-mode explicit inverse; the
+``DirectInverse`` and ``ExplainedCovariance`` representations;
+``truncated_psd_solve`` and ``vertical_stack``.  Above n = 2048 the
 factorization is the blocked column-panel loop; at or below it
-torch.linalg.cholesky plus triangular solves.
+torch.linalg.cholesky plus triangular solves.  ``factorize_safe`` always
+takes the library Cholesky, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -100,6 +104,44 @@ class CholeskyFactor:
         L = cholesky(K)
         return _sum_of_logs(torch.diagonal(L)), _lower_solve(L, rhs)
 
+    @staticmethod
+    def safe_jitter(K, initial_jitter: float = 0.0, max_tries: int = 6,
+                    jitter_growth: float = 100.0) -> float:
+        """The jitter ``factorize_safe`` adds to sym(K): 0 (or
+        ``initial_jitter``) when that factors, else the first of base,
+        base * growth, ... (``max_tries`` of them) that does, else the last.
+        The base is ``initial_jitter`` or, when that is 0, the dtype's eps,
+        as in the JAX package.  Each try reads the factorization's ``info``
+        back to the host (torch.linalg.cholesky raises where the JAX
+        package's returns NaN, so tries go through cholesky_ex)."""
+        K = 0.5 * (K.detach() + K.detach().T)
+        eye = torch.eye(K.shape[0], dtype=K.dtype, device=K.device)
+        base = initial_jitter if initial_jitter > 0 else float(torch.finfo(K.dtype).eps)
+        tries = [initial_jitter if initial_jitter > 0 else 0.0]
+        for _ in range(max_tries):
+            tries.append(base)
+            base *= jitter_growth
+        for i, jitter in enumerate(tries):
+            if i > 0 and jitter == tries[i - 1]:
+                continue  # the same matrix again (a positive initial jitter is also the base)
+            _, info = torch.linalg.cholesky_ex(K + jitter * eye if jitter else K)
+            if int(info) == 0:
+                break
+        return jitter
+
+    @classmethod
+    def factorize_safe(cls, K, initial_jitter: float = 0.0, max_tries: int = 6,
+                       jitter_growth: float = 100.0) -> "CholeskyFactor":
+        """Factorize sym(K) with automatic jitter escalation: the tries run
+        without gradients (``safe_jitter``), then one differentiable
+        factorization at the chosen jitter carries the gradients.  A matrix
+        that no try factors gives a NaN factor, as in the JAX package."""
+        jitter = cls.safe_jitter(K, initial_jitter, max_tries, jitter_growth)
+        K = 0.5 * (K + K.T)
+        if jitter:
+            K = K + jitter * torch.eye(K.shape[0], dtype=K.dtype, device=K.device)
+        return cls(cholesky(K))
+
     @property
     def shape(self):
         return self.L.shape
@@ -149,6 +191,34 @@ class CholeskyFactor:
         triangularity-exploiting product)."""
         return blocked_lauum(self._tri_inverse())
 
+    def to_direct_inverse(self, refine_steps: int = 2) -> "DirectInverse":
+        """Serving-mode representation: one O(n^3) explicit inverse up
+        front, then every solve is one GEMM instead of two triangular
+        solves.
+
+        ``refine_steps`` Newton-Schulz steps X <- X + X (I - A X) polish the
+        inverse, with full-f32 products (the JAX package asks for its
+        highest matmul precision; ``config`` keeps TF32 off here).  A step
+        is taken only while max|I - A X| < 1, where it contracts; outside
+        that basin the unrefined inverse is kept instead of diverging.  The
+        gate is a ``torch.where``, so nothing is read back.  Five n x n
+        buffers are alive at the peak of a step."""
+        X = self.inverse()
+        if refine_steps:
+            A = self.L @ self.L.T
+            for _ in range(refine_steps):
+                R = A @ X
+                R.neg_()
+                R.diagonal().add_(1.0)  # R = I - A X, without an identity buffer
+                low, high = torch.aminmax(R)
+                contracting = torch.maximum(-low, high) < 1.0
+                XR = X @ R
+                del R
+                X = torch.where(contracting, XR.add_(X), X)
+                del XR
+            X = 0.5 * (X + X.T)
+        return DirectInverse(X)
+
     def inverse_diagonal(self) -> torch.Tensor:
         """diag(A^-1): the column-wise squared norms of L^-1."""
         Linv = self._tri_inverse()
@@ -163,3 +233,48 @@ class CholeskyFactor:
             cols = Linv[:, torch.as_tensor(idx, device=Linv.device)]
             blocks.append(cols.T @ cols)
         return blocks
+
+
+@dataclasses.dataclass(frozen=True)
+class DirectInverse:
+    """A covariance held by its explicit inverse: solve is one product."""
+
+    inverse_matrix: torch.Tensor
+
+    def solve(self, rhs: torch.Tensor) -> torch.Tensor:
+        return self.inverse_matrix @ rhs
+
+
+@dataclasses.dataclass(frozen=True)
+class ExplainedCovariance:
+    """C = K (K - P)^-1 K, the covariance ``fit_from_prediction`` rebuilds
+    from a prediction P: ``explained`` holds K - P, so solve(rhs) =
+    C^-1 rhs = K^-1 (K - P) K^-1 rhs.  Each solve factorizes the prior K
+    again, without jitter, as the JAX package does."""
+
+    prior: torch.Tensor  # K
+    explained: torch.Tensor  # K - P
+
+    def solve(self, rhs: torch.Tensor) -> torch.Tensor:
+        K_chol = CholeskyFactor.factorize(self.prior)
+        return K_chol.solve(self.explained @ K_chol.solve(rhs))
+
+
+def truncated_psd_solve(A: torch.Tensor, rhs: torch.Tensor, rtol: float = 1e-12) -> torch.Tensor:
+    """Solve through the eigendecomposition of sym(A), dropping eigenvalues
+    at or below ``rtol`` times the largest magnitude."""
+    vals, vecs = torch.linalg.eigh(0.5 * (A + A.T))
+    cutoff = rtol * torch.max(torch.abs(vals))
+    keep = vals > cutoff
+    inv_vals = torch.where(keep, 1.0 / torch.where(keep, vals, torch.ones_like(vals)), torch.zeros_like(vals))
+    if rhs.ndim > 1:
+        return vecs @ (inv_vals[:, None] * (vecs.T @ rhs))
+    return vecs @ (inv_vals * (vecs.T @ rhs))
+
+
+def vertical_stack(blocks: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Stack matrices row-wise, or concatenate vectors."""
+    blocks = [torch.as_tensor(b) for b in blocks]
+    if blocks and all(b.ndim == 1 for b in blocks):
+        return torch.cat(blocks, dim=0)
+    return torch.cat([torch.atleast_2d(b) for b in blocks], dim=0)

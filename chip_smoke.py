@@ -30,14 +30,25 @@ default route, the forward and value+grad with their launch counts, times
 and peak memory, and the f32 NLML against an f64 lazy NLML on the card.
 The cross-validation phase holds fast LOO, a LOGO of 128 groups of 64 (the
 batched path) and a ragged LOGO at N = 8192 against the same calls in f64
-on the card, with a TF32 control, and times LOO at N = 28672.  Any failed
-check raises.  Each kernel's time is printed
+on the card, with a TF32 control, and times LOO at N = 28672.  The
+serving-side and sparse phases follow, each held against the same calls
+in f64 on the card with a TF32 control and its launch counts: FITC at
+N = 131072 with 4096 inducing points (fit, predict, log_likelihood,
+value+grad; the K_fu gram timed against its bound; |diag R| of the tall
+QR by cuSOLVER's f32 and by the route's f64 against f64; the host's
+grouping pass that FITC skips, timed), PITC at N = 32768 in
+about 400 ragged groups and its update, the exact GP's update at the
+main path's N against a refit, ``for_serving`` (bench.py's serving row:
+chained predict batches against the factor, the Newton-Schulz residuals
+and what raises them,
+the construction at N = 28672), ``safe_factorization`` on a singular gram,
+and a ``fit_from_prediction`` round trip.  Any failed check raises.  Each kernel's time is printed
 beside its bound (the least time the card could take for the same work);
 the gram kernels also beside the card's write floor, a ``fill_`` of a
 buffer of the gram's shape.
 ``--profile`` adds a torch.profiler breakdown of one NLML's device time and
-of one value+grad evaluation's, forward and backward apart, and of one
-lazy NLML at N = 57344.
+of one value+grad evaluation's, forward and backward apart, of one
+lazy NLML at N = 57344, and of one FITC fit.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -48,6 +59,7 @@ script.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import re
@@ -77,6 +89,18 @@ COL_J0 = (0, 13312, 27648)  # column panels of N checked against the plain gram
 CV_GROUP = 64      # the uniform LOGO: N_GRAD / 64 = 128 groups of 64 sorted points
 CV_RAGGED_WIDTH = 0.7  # the ragged LOGO: inputs grouped by floor(x / 0.7)
 CV_REPS = 3
+# the sparse GP phases: FITC over N_FITC bench points with M_FITC inducing
+# points uniformly spaced 100 / 4095 ~ FITC_LS / 2 apart, so the f32
+# inducing gram has kappa ~1e4, as the main path's first panel; PITC
+# grouped by floor(x / PITC_WIDTH), about 400 ragged groups of ~82; its
+# update fits the first 3/4 and updates with the rest
+N_FITC, M_FITC, FITC_LS = 131072, 4096, 0.05
+N_PITC, M_PITC, PITC_LS, PITC_WIDTH = 32768, 1024, 0.2, 0.25
+SPARSE_REPS = 3
+N_UPDATE_FIRST = 24576  # the exact update: fit on these, update with the rest of N
+N_SERVE, SERVE_LS, SERVE_R = 8192, 2.0, 64  # bench.py's serving row; R chained batches of N_TEST
+N_SAFE_DISTINCT = 4096  # the safe fit: each of these points twice, no noise term
+FFP_SPACING = 0.25  # fit_from_prediction at N_TEST points LENGTH_SCALE / 2 apart
 # NVIDIA's data sheet for the H100 SXM: device memory rate, and the FP32
 # rate outside the tensor cores (the panel kernel and the grams use no
 # tensor cores).
@@ -122,6 +146,26 @@ LAZY_REL_TOL = 1e-6
 # number), so the TF32 control (2e-3 to 7e-3) fails them.
 CV_TOLS = {"loo mean": 2.5e-5, "loo variance": 5e-5, "logo mean": 8e-4, "logo covariance": 1.3e-3,
            "ragged mean": 2.5e-4, "ragged variance": 1.5e-3}
+
+# The new phases' gates, each error the largest |f32 - f64| over the
+# largest |f64| entry (relative for a scalar), about 10x the first reading
+# on H100 (PERF.md section 6), so a TF32 run fails one of each phase's
+# gates.  The sparse phases' readings are those of the tall QR in f64
+# (FITC mean 1.16e-6, variance 2.8e-5, NLML 4.7e-6, gradient 3.8e-6; PITC
+# 1.7e-6, 3.3e-5, 1.3e-6): cuSOLVER's f32 QR put them at 3e-3 to 1.4e-2.
+# The serving variance is the explicit inverse's: the prior minus an f32
+# quadratic form whose rounding floor is 0.13 of the largest variance
+# (5.3e-2 read).
+FITC_TOLS = {"mean": 1.2e-5, "variance": 2.8e-4, "nlml": 4.7e-5, "value": 4.7e-5, "gradient": 3.8e-5}
+PITC_TOLS = {"mean": 1.7e-5, "variance": 3.3e-4, "nlml": 1.3e-5}
+SPARSE_UPDATE_TOLS = {"mean": 1.8e-5, "variance": 3.5e-4, "full fit mean": 2.9e-4, "full fit variance": 2.1e-4}
+UPDATE_TOLS = {"mean": 9.3e-5, "variance": 1.3e-4, "refit mean": 1.1e-4, "refit variance": 1.4e-4}
+SERVING_TOLS = {"mean": 5.3e-6, "variance": 0.53, "factor mean": 5.3e-6, "factor variance": 8.2e-4}
+# for_serving() at N against the factor's predictions: the mean takes the
+# same information vector (equal); the variance about 10x its reading (1.8e-2).
+SERVING_N_TOLS = {"mean": 5.3e-6, "variance": 0.18}
+SAFE_TOLS = {"nlml": 0.1, "mean": 0.6, "variance": 0.075}
+FFP_TOLS = {"mean": 4.8e-3, "covariance": 4.2e-6, "f64 mean": 5.8e-5, "f64 covariance": 2.3e-5}
 
 SOURCES = {
     "radial_gram": ("albatross_tpu_torch/csrc/radial_gram.cu", "albatross_tpu/ops/pallas_gram.py:81"),
@@ -205,10 +249,10 @@ def cuda_ms(torch, fn, reps: int = REPS, batch: int = 10) -> float:
     return statistics.median(times)
 
 
-def print_profile(torch, fn, what: str, card: str, evals: int) -> None:
+def print_profile(torch, fn, what: str, card: str, evals: int) -> tuple[float, float]:
     """Where ``fn``'s device time goes: torch.profiler over ``evals`` calls
     of it, device kernels only, per call, plus the device idle share
-    against host wall time."""
+    against host wall time.  Returns (wall ms, device ms) per call."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -233,6 +277,7 @@ def print_profile(torch, fn, what: str, card: str, evals: int) -> None:
           f"{device_us / 1e3:.1f} ms, device idle share {1 - device_us / 1e3 / wall_ms:.4f}")
     for us, key, count in sorted(rows, reverse=True)[:16]:
         print(f"  {us / 1e3 / evals:9.3f} ms/call  {count // evals:5d} launches/call  {key[:100]}")
+    return wall_ms / evals, device_us / 1e3 / evals
 
 
 def bench_model(pt):
@@ -716,6 +761,573 @@ def check_cv(torch, np, pt, _build, card: str, data_main) -> None:
           f"(median of {CV_REPS}; all {times})")
 
 
+def max_rel(got, ref) -> float:
+    """Largest |got - ref| over the largest |ref| entry, in f64 on ref's
+    device; NaN (which fails every gate) when anything is not finite."""
+    ref = ref.double()
+    return ((got.double().to(ref.device) - ref).abs().max() / ref.abs().max()).item()
+
+
+def scalar_rel(got, ref) -> float:
+    return abs(float(got) - float(ref)) / abs(float(ref))
+
+
+def check_gates(what: str, errors: dict, tols: dict) -> None:
+    print(f"{what}: " + ", ".join(f"{k} {v:.3e} (tol {tols[k]:g})" for k, v in errors.items()))
+    bad = {k: v for k, v in errors.items() if not v <= tols[k]}
+    if bad:
+        fail(f"{what} disagrees: {bad}")
+
+
+def check_tf32_control(torch, what: str, run, tols: dict) -> None:
+    """``run()`` again with TF32 GEMMs: one of its errors must fail its
+    gate."""
+    torch.set_float32_matmul_precision("high")
+    try:
+        tf32 = run()
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"{what} TF32 control: " + ", ".join(f"{k} {v:.3e}" for k, v in tf32.items()))
+    failed = [k for k in tols if not tf32[k] <= tols[k]]
+    if not failed:
+        fail(f"the {what} gates accept a TF32 run: {tf32}")
+    print(f"{what} TF32 control: rejected by the gates of {failed}")
+
+
+def wall_times(torch, fn, reps: int) -> list:
+    """Synchronised host wall seconds of ``reps`` calls of ``fn``."""
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return times
+
+
+def check_counts(what: str, counts: dict, expected: dict) -> None:
+    print(f"{what} launches: {counts}")
+    if any(counts[k] != v for k, v in expected.items()):
+        fail(f"{what} launch counts {counts}, expected {expected}")
+
+
+def sparse_model(pt, length_scale: float, inducing, grouper=None):
+    """SquaredExponential(length_scale, 1.0) + measurement_only(
+    IndependentNoise(0.3, assume_unique=True)) as a sparse GP (FITC unless
+    ``grouper``).  The bench model's noise: bench_data's sorted f32 inputs
+    repeat a few values (18 at N_PITC), and noise by value would make
+    those PITC blocks singular."""
+    kernel = pt.SquaredExponential(length_scale, SIGMA) + pt.measurement_only(
+        pt.IndependentNoise(NOISE, assume_unique=True))
+    return pt.sparse_gp_from_covariance(kernel, grouper=grouper, inducing_point_strategy=inducing)
+
+
+def check_fitc(torch, np, pt, _build, card: str, args) -> dict:
+    """FITC at N_FITC with M_FITC uniformly spaced inducing points: fit,
+    predict marginal at N_TEST points, log_likelihood and value+grad with
+    respect to the tunable vector (the nuggets included), each against the
+    same calls in f64 on the card, with a TF32 control; launch counts,
+    times and peak memory; the cross gram K_fu timed against its bound."""
+    from albatross_tpu_torch.indexing.grouping import group_by
+    from albatross_tpu_torch.models.sparse_gp import EveryPointGrouper, _tall_qr
+    from albatross_tpu_torch.ops.radial_gram import plain_radial_gram, radial_gram
+
+    x_np, y_np = bench_data(np, N_FITC, SEED + 4)
+    model = sparse_model(pt, FITC_LS, pt.UniformlySpacedInducingPoints(M_FITC))
+    data = pt.RegressionDataset.create(x_np, y_np, dtype=torch.float32)
+    xs = torch.linspace(0.0, 100.0, N_TEST, device="cuda")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t = time.perf_counter()
+    fit = model.fit(data)
+    pred = fit.predict(xs).marginal()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    fp_peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = dict(_build.LAUNCHES)
+    check_counts(f"FITC fit + predict N={N_FITC} M={M_FITC}", counts,
+                 {"radial_gram": 3, "radial_gram_diag": 0, "radial_gram_cols": 0, "panel_cholinv": 4})
+    if fit.fit.numerical_rank != M_FITC:
+        fail(f"FITC numerical rank {fit.fit.numerical_rank}, expected {M_FITC}")
+    _build.reset_launch_counts()
+    ll = model.log_likelihood(data).item()
+    ll_counts = dict(_build.LAUNCHES)
+    check_counts("FITC log_likelihood", ll_counts, {"radial_gram": 2, "panel_cholinv": 4})
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    value, grad = value_grad(torch, model, data)
+    vg_peak = torch.cuda.max_memory_allocated() / 2**30
+    vg_counts, vg_backwards = dict(_build.LAUNCHES), dict(_build.BACKWARDS)
+    check_counts("FITC value+grad", vg_counts, {"radial_gram": 2, "panel_cholinv": 4})
+    if vg_backwards["panel_cholinv"] != 4 or grad.shape != (5,):
+        fail(f"FITC value+grad: panel backward calls {vg_backwards}, gradient shape {tuple(grad.shape)}")
+
+    data64 = pt.RegressionDataset.create(x_np.astype(np.float64), y_np.astype(np.float64), dtype=torch.float64)
+    ref = model.fit(data64).predict(xs.double()).marginal()
+    ll64 = model.log_likelihood(data64).item()
+    value64, grad64 = value_grad(torch, model, data64)
+    value64 = value64.item()
+
+    # why the tall QR runs in f64: |diag R| of B (N_FITC + M_FITC rows) by
+    # cuSOLVER's f32 QR and by the route's f64 one, against the f64 data's
+    def augmented(d):
+        u = model.inducing_point_strategy(model.covariance_function, d.features)
+        A_chol, K_uu_chol, K_fu, _ = model._compute_internal_components(u, d.features, d.targets)
+        return model._augmented(A_chol, K_uu_chol, K_fu)
+
+    with torch.no_grad():
+        B = augmented(data)
+        diag32 = torch.linalg.qr(B, mode="r").R.diagonal().abs()
+        diag_route = _tall_qr(B, "r")[1].diagonal().abs()
+        del B
+        diag64 = torch.linalg.qr(augmented(data64), mode="r").R.diagonal().abs()
+    print(f"FITC N={N_FITC}: |diag R| of B against f64: cuSOLVER's f32 QR {max_rel(diag32, diag64):.3e}, the "
+          f"route's f64 QR of the f32 B {max_rel(diag_route, diag64):.3e}")
+    del data64, diag32, diag_route, diag64
+
+    def errors_of(pred, ll, value, grad):
+        return {"mean": max_rel(pred.mean, ref.mean), "variance": max_rel(pred.variance, ref.variance),
+                "nlml": scalar_rel(ll, ll64), "value": scalar_rel(value, value64), "gradient": max_rel(grad, grad64)}
+
+    errors = errors_of(pred, ll, value.item(), grad)
+    print(f"FITC N={N_FITC}: log_likelihood f32 {ll!r}, f64 {ll64!r}; gradient f32 {grad.tolist()}, "
+          f"f64 {grad64.tolist()}")
+    check_gates(f"FITC N={N_FITC} f32 vs f64 on the card", errors, FITC_TOLS)
+
+    def tf32_run():
+        v, g = value_grad(torch, model, data)
+        return errors_of(model.fit(data).predict(xs).marginal(), model.log_likelihood(data).item(), v.item(), g)
+
+    check_tf32_control(torch, "FITC", tf32_run, FITC_TOLS)
+    del pred, ref
+
+    fp_times = wall_times(torch, lambda: model.fit(data).predict(xs).marginal(), SPARSE_REPS)
+    ll_times = wall_times(torch, lambda: model.log_likelihood(data), SPARSE_REPS)
+    vg_times = wall_times(torch, lambda: value_grad(torch, model, data), SPARSE_REPS)
+    print(f"[{card}] FITC N={N_FITC} M={M_FITC} f32: fit + predict marginal ({N_TEST} points) "
+          f"{statistics.median(fp_times):.4f} s (median of {SPARSE_REPS}; all {fp_times}; the first, counted "
+          f"call {first_s:.4f} s), peak device memory {fp_peak:.2f} GiB; log_likelihood "
+          f"{statistics.median(ll_times):.4f} s/eval (all {ll_times}); value+grad "
+          f"{statistics.median(vg_times):.4f} s/eval (all {vg_times}), peak device memory {vg_peak:.2f} GiB")
+    if args.profile:
+        print_profile(torch, lambda: model.fit(data), f"FITC fit N={N_FITC} M={M_FITC}", card, 1)
+
+    # the host pass FITC's EveryPointGrouper route skips: the grouped route's
+    # group_by over N_FITC singleton groups and their concatenation
+    def grouping_pass():
+        values = group_by(data.features, EveryPointGrouper()).indexers().values()
+        return np.concatenate(values), all(len(idx) == 1 for idx in values)
+
+    group_times = wall_times(torch, grouping_pass, SPARSE_REPS)
+    print(f"[{card}] FITC N={N_FITC}: the grouping pass the EveryPointGrouper route skips (group_by over "
+          f"{N_FITC} singleton groups, concatenated) {statistics.median(group_times):.4f} s on the host (all "
+          f"{group_times}), against fit + predict {statistics.median(fp_times):.4f} s")
+
+    # the cross gram K_fu at (N_FITC, M_FITC) against its plain version and its bound
+    x, u = data.features, fit.fit.train_features
+    err = (radial_gram(x, u, FITC_LS, SIGMA, PROFILE) - plain_radial_gram(x, u, FITC_LS, SIGMA, PROFILE)).abs().max()
+    cross = {"max_abs_err": err.item(),
+             "ms": cuda_ms(torch, lambda: radial_gram(x, u, FITC_LS, SIGMA, PROFILE)),
+             "plain_ms": cuda_ms(torch, lambda: plain_radial_gram(x, u, FITC_LS, SIGMA, PROFILE), reps=3, batch=2)}
+    cross["bound_ms"], cross["bound_by"] = gram_bound(N_FITC, M_FITC, 1, 4, square=False, diag=False)
+    print(f"[{card}] radial_gram K_fu ({N_FITC}, {M_FITC}) D=1 f32: max|kernel - plain| = "
+          f"{cross['max_abs_err']:.3e}; kernel {cross['ms']:.4f} ms, plain {cross['plain_ms']:.4f} ms, bound "
+          f"{cross['bound_ms']:.4f} ms by {cross['bound_by']} ({cross['bound_ms'] / cross['ms']:.1%} of it)")
+    if not cross["max_abs_err"] <= GRAM_F32_TOL * SIGMA**2:
+        fail(f"K_fu gram disagrees with its plain version: {cross['max_abs_err']}")
+    return {"launches": counts, "cross": cross}
+
+
+def check_pitc(torch, np, pt, _build, card: str) -> dict:
+    """PITC at N_PITC, M_PITC, groups by floor(x / PITC_WIDTH): fit,
+    predict marginal and log_likelihood against f64 on the card with a TF32
+    control, one gram launch a group, wall time against device time.  Then
+    the sparse update: a fit on the first 3/4 updated with the rest, on a
+    fixed inducing grid, held against f64 and against a fit of all the
+    data.  Returns both runs' launch counts."""
+    x_np, y_np = bench_data(np, N_PITC, SEED + 5)
+
+    def grouper(features):
+        return np.floor(features.cpu().numpy() / PITC_WIDTH).astype(np.int64)
+
+    sizes = np.unique(grouper(torch.as_tensor(x_np)), return_counts=True)[1]
+    n_groups = len(sizes)
+    model = sparse_model(pt, PITC_LS, pt.UniformlySpacedInducingPoints(M_PITC), grouper)
+    data = pt.RegressionDataset.create(x_np, y_np, dtype=torch.float32)
+    data64 = pt.RegressionDataset.create(x_np.astype(np.float64), y_np.astype(np.float64), dtype=torch.float64)
+    xs = torch.linspace(0.0, 100.0, N_TEST, device="cuda")
+
+    _build.reset_launch_counts()
+    fit = model.fit(data)
+    pred = fit.predict(xs).marginal()
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    check_counts(f"PITC fit + predict N={N_PITC} M={M_PITC}, {n_groups} groups", counts,
+                 {"radial_gram": n_groups + 3, "radial_gram_diag": 0, "radial_gram_cols": 0, "panel_cholinv": 0})
+    ll = model.log_likelihood(data).item()
+    ref = model.fit(data64).predict(xs.double()).marginal()
+    ll64 = model.log_likelihood(data64).item()
+
+    def errors_of(pred, ll):
+        return {"mean": max_rel(pred.mean, ref.mean), "variance": max_rel(pred.variance, ref.variance),
+                "nlml": scalar_rel(ll, ll64)}
+
+    errors = errors_of(pred, ll)
+    print(f"PITC N={N_PITC}: {n_groups} groups of {min(sizes)}-{max(sizes)} points; log_likelihood f32 {ll!r}, "
+          f"f64 {ll64!r}")
+    check_gates(f"PITC N={N_PITC} f32 vs f64 on the card", errors, PITC_TOLS)
+    check_tf32_control(torch, "PITC", lambda: errors_of(model.fit(data).predict(xs).marginal(),
+                                                      model.log_likelihood(data).item()), PITC_TOLS)
+    fp_times = wall_times(torch, lambda: model.fit(data).predict(xs).marginal(), SPARSE_REPS)
+    ll_times = wall_times(torch, lambda: model.log_likelihood(data), SPARSE_REPS)
+    wall_ms, device_ms = print_profile(torch, lambda: model.fit(data), f"PITC fit N={N_PITC}", card, 1)
+    print(f"[{card}] PITC N={N_PITC} M={M_PITC} f32, {n_groups} groups: fit + predict marginal "
+          f"{statistics.median(fp_times):.4f} s (median of {SPARSE_REPS}; all {fp_times}); log_likelihood "
+          f"{statistics.median(ll_times):.4f} s/eval (all {ll_times}); the fit under the profiler: wall "
+          f"{wall_ms:.1f} ms, device {device_ms:.1f} ms")
+
+    # the sparse update, on one inducing grid for every fit
+    def grid(covariance, features):
+        return torch.linspace(0.0, 100.0, M_PITC, dtype=features.dtype, device=features.device)
+
+    fixed = sparse_model(pt, PITC_LS, grid, grouper)
+    n1 = 3 * N_PITC // 4
+
+    def update_run(dtype, count: bool = False):
+        xd, yd = x_np.astype(dtype), y_np.astype(dtype)
+        first = pt.RegressionDataset.create(xd[:n1], yd[:n1])
+        rest = pt.RegressionDataset.create(xd[n1:], yd[n1:])
+        fit1 = fixed.fit(first)
+        if count:
+            _build.reset_launch_counts()
+        updated = fit1.update(rest)
+        pred = updated.predict(xs.to(first.features.dtype)).marginal()
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        full = fixed.fit(pt.RegressionDataset.create(xd, yd)).predict(xs.to(first.features.dtype)).marginal()
+        return pred, full, counts
+
+    up, full, up_counts = update_run(np.float32, count=True)
+    n_rest = len(np.unique(grouper(torch.as_tensor(x_np[n1:]))))
+    check_counts(f"sparse update ({N_PITC - n1} points, {n_rest} groups) + predict", up_counts,
+                 {"radial_gram": n_rest + 3, "radial_gram_diag": 0, "panel_cholinv": 0})
+    up64, full64, _ = update_run(np.float64)
+
+    def update_errors(up, full):
+        return {"mean": max_rel(up.mean, up64.mean), "variance": max_rel(up.variance, up64.variance),
+                "full fit mean": max_rel(up.mean, full.mean), "full fit variance": max_rel(up.variance, full.variance)}
+
+    errors = update_errors(up, full)
+    print(f"sparse update in f64: against the f64 fit of all the data, mean {max_rel(up64.mean, full64.mean):.3e}, "
+          f"variance {max_rel(up64.variance, full64.variance):.3e} (the group split at point {n1})")
+    check_gates(f"sparse update N={n1} + {N_PITC - n1} f32 vs f64 on the card and vs a full fit", errors,
+                SPARSE_UPDATE_TOLS)
+    check_tf32_control(torch, "sparse update", lambda: update_errors(*update_run(np.float32)[:2]),
+                       SPARSE_UPDATE_TOLS)
+    return {"launches": counts, "update_launches": up_counts}
+
+
+def check_exact_update(torch, np, pt, _build, card: str, x_np, y_np, xs) -> dict:
+    """The exact GP's update at the main path's N: SquaredExponential(0.5,
+    1.0) + IndependentNoise(0.3) (no measurement-only term, so an update
+    equals a refit), jitter 1e-4, fit on N_UPDATE_FIRST points and updated
+    with the rest; its marginal predictions against a direct fit of all N
+    in f32 and in f64 on the card, with a TF32 control; the update timed
+    against the refit."""
+    from albatross_tpu_torch.ops.block import BlockSymmetric
+
+    kernel = pt.SquaredExponential(LENGTH_SCALE, SIGMA) + pt.IndependentNoise(NOISE, assume_unique=True)
+    model = pt.gp_from_covariance(kernel, jitter=JITTER)
+
+    def datasets(dtype):
+        xd, yd = x_np.astype(dtype), y_np.astype(dtype)
+        return (pt.RegressionDataset.create(xd[:N_UPDATE_FIRST], yd[:N_UPDATE_FIRST]),
+                pt.RegressionDataset.create(xd[N_UPDATE_FIRST:], yd[N_UPDATE_FIRST:]),
+                pt.RegressionDataset.create(xd, yd))
+
+    first, rest, full = datasets(np.float32)
+    fit1 = model.fit(first)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    updated = fit1.update(rest)
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    check_counts(f"exact update {N_UPDATE_FIRST} + {N - N_UPDATE_FIRST}", counts,
+                 {"radial_gram": 3, "radial_gram_diag": 0, "panel_cholinv": (N - N_UPDATE_FIRST) // 1024})
+    if not isinstance(updated.fit.train_covariance, BlockSymmetric) or updated.for_serving() is not updated:
+        fail("the updated fit is not a BlockSymmetric fit that for_serving leaves as it is")
+    pred = updated.predict(xs).marginal()
+    refit = model.fit(full).predict(xs).marginal()
+    first64, rest64, full64 = datasets(np.float64)
+    ref = model.fit(full64).predict(xs.double()).marginal()
+    up64 = model.fit(first64).update(rest64).predict(xs.double()).marginal()
+    del first64, rest64, full64
+
+    def errors_of(pred, refit):
+        return {"mean": max_rel(pred.mean, ref.mean), "variance": max_rel(pred.variance, ref.variance),
+                "refit mean": max_rel(pred.mean, refit.mean), "refit variance": max_rel(pred.variance, refit.variance)}
+
+    errors = errors_of(pred, refit)
+    print(f"exact update in f64 against the f64 refit: mean {max_rel(up64.mean, ref.mean):.3e}, variance "
+          f"{max_rel(up64.variance, ref.variance):.3e}")
+    check_gates(f"exact update N={N_UPDATE_FIRST} + {N - N_UPDATE_FIRST} f32 vs the f64 refit and the f32 refit",
+                errors, UPDATE_TOLS)
+    check_tf32_control(torch, "exact update", lambda: errors_of(
+        model.fit(first).update(rest).predict(xs).marginal(), model.fit(full).predict(xs).marginal()),
+        UPDATE_TOLS)
+    up_times = wall_times(torch, lambda: fit1.update(rest), SPARSE_REPS)
+    refit_times = wall_times(torch, lambda: model.fit(full), SPARSE_REPS)
+    print(f"[{card}] exact update {N_UPDATE_FIRST} + {N - N_UPDATE_FIRST} f32: "
+          f"{statistics.median(up_times):.4f} s (median of {SPARSE_REPS}; all {up_times}) against a refit of "
+          f"{N}: {statistics.median(refit_times):.4f} s (all {refit_times})")
+    return {"launches": counts}
+
+
+def check_serving(torch, np, pt, _build, card: str, main_model, main_data, xs) -> dict:
+    """bench.py's serving row: N_SERVE points, SquaredExponential(2.0,
+    1.0) + measurement_only(IndependentNoise(0.3)), jitter 1e-4;
+    ``for_serving()`` predictions against the factor's and f64, with a
+    TF32 control; max|I - A X| after 0, 1 and 2 Newton-Schulz steps; the
+    time a batch of N_TEST over SERVE_R chained batches, each consuming
+    every output of the one before; then the construction at N, its time
+    and peak memory."""
+    from albatross_tpu_torch.models.base import FitModel
+    from albatross_tpu_torch.ops.linalg import DirectInverse
+
+    rng = np.random.default_rng(1)  # bench.py's serving row
+    x_np = np.sort(rng.uniform(0.0, 100.0, N_SERVE)).astype(np.float32)
+    y_np = np.sin(0.3 * x_np)
+    xq_np = np.sort(rng.uniform(0.0, 100.0, N_TEST)).astype(np.float32)
+    kernel = pt.SquaredExponential(SERVE_LS, SIGMA) + pt.measurement_only(
+        pt.IndependentNoise(NOISE, assume_unique=True))
+    model = pt.gp_from_covariance(kernel, jitter=JITTER)
+    data = pt.RegressionDataset.create(x_np, y_np, dtype=torch.float32)
+    xq = torch.as_tensor(xq_np, device="cuda")
+
+    _build.reset_launch_counts()
+    fit = model.fit(data)
+    serving = fit.for_serving()
+    pred = serving.predict(xq).marginal()
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    check_counts(f"serving fit + for_serving + predict N={N_SERVE}", counts,
+                 {"radial_gram": 1, "radial_gram_diag": 1, "panel_cholinv": N_SERVE // 1024})
+    if not isinstance(serving.fit.train_covariance, DirectInverse):
+        fail(f"for_serving gave a {type(serving.fit.train_covariance).__name__}")
+    factor = fit.predict(xq).marginal()
+    ref = model.fit(pt.RegressionDataset.create(x_np.astype(np.float64), y_np.astype(np.float64))).predict(
+        xq.double()).marginal()
+
+    def errors_of(pred, factor):
+        return {"mean": max_rel(pred.mean, ref.mean), "variance": max_rel(pred.variance, ref.variance),
+                "factor mean": max_rel(factor.mean, ref.mean), "factor variance": max_rel(factor.variance, ref.variance)}
+
+    errors = errors_of(pred, factor)
+    check_gates(f"serving N={N_SERVE} f32 (explicit inverse, and the factor) vs f64 on the card", errors,
+                SERVING_TOLS)
+
+    def tf32_run():
+        f = model.fit(data)
+        return errors_of(f.for_serving().predict(xq).marginal(), f.predict(xq).marginal())
+
+    check_tf32_control(torch, "serving", tf32_run, SERVING_TOLS)
+
+    # Why the steps raise max|I - A X| and yet cut the variance's error:
+    # the residual after 0, 1, 2 steps measured in f32 and in f64 (A = L L^T
+    # of the f32 factor); inverse()'s asymmetry before the steps; the f32
+    # GEMM's error in A X0 against the residual it feeds; one f32 step
+    # without the final symmetrization X <- (X + X^T) / 2; one step in f64
+    # from the same X0; and the variance's f32 rounding floor
+    # eps max(|k|^T |X| |k|) over the largest f64 variance.
+    chol = fit.fit.train_covariance
+    A = chol.L @ chol.L.T
+    A64 = chol.L.double() @ chol.L.double().T
+    cross = model._cross(fit.fit, xq)
+    X0 = chol.inverse()
+    asymmetry = ((X0 - X0.T).abs().max() / X0.abs().max()).item()
+
+    def served_errors(X):
+        inverse = DirectInverse(X)
+        p = FitModel(model, dataclasses.replace(fit.fit, train_covariance=inverse)).predict(xq).marginal()
+        return max_rel(p.mean, ref.mean), max_rel(p.variance, ref.variance)
+
+    def residual(A, X):
+        R = A @ X
+        R.diagonal().sub_(1.0)
+        return R.abs().max().item()
+
+    residuals, residuals64, steps_errors = [], [], []
+    for steps in (0, 1, 2):
+        X = chol.to_direct_inverse(refine_steps=steps).inverse_matrix
+        residuals.append(residual(A, X))
+        residuals64.append(residual(A64, X.double()))
+        steps_errors.append(served_errors(X))
+    quadratic = torch.sum(cross.abs() * (X.abs() @ cross.abs()), dim=0)
+    variance_floor = torch.finfo(torch.float32).eps * quadratic.max().item() / ref.variance.abs().max().item()
+    del X, quadratic
+    R0 = A @ X0
+    gemm_error = (R0.double() - A64 @ X0.double()).abs().max().item()
+    R0.neg_()
+    R0.diagonal().add_(1.0)
+    unsymmetrized = residual(A64, (X0 + X0 @ R0).double())
+    X64 = X0.double()
+    R64 = A64 @ X64
+    R64.neg_()
+    R64.diagonal().add_(1.0)
+    X64 = X64 + X64 @ R64
+    X64 = 0.5 * (X64 + X64.T)
+    step64 = (residual(A64, X64), residual(A64, X64.float().double()), served_errors(X64.float()))
+    print(f"serving N={N_SERVE}: max|I - A X| after 0, 1, 2 Newton-Schulz steps {residuals} in f32, "
+          f"{residuals64} in f64; predictions vs f64 (mean, variance) after 0, 1, 2 steps {steps_errors}; "
+          f"inverse() asymmetry max|X - X^T| / max|X| {asymmetry:.3e}; the f32 GEMM A X0 off by {gemm_error:.3e} "
+          f"against the residual's {residuals64[0]:.3e}; one f32 step without the symmetrization: max|I - A X| "
+          f"{unsymmetrized:.3e}; one f64 step: {step64[0]:.3e} ({step64[1]:.3e} stored in f32), predictions "
+          f"(stored in f32) {step64[2]}; the variance's f32 rounding floor {variance_floor:.3e}")
+    del A, A64, X0, R0, X64, R64
+
+    def chain(f):
+        prev = torch.zeros((), device="cuda")
+        for _ in range(SERVE_R):
+            p = f.predict(xq + 1e-30 * prev).marginal()
+            prev = p.mean[0] + 1e-30 * (p.mean.sum() + p.variance.sum())
+        return prev
+
+    chain(serving)
+    chain(fit)
+    serve_times, factor_times = [], []
+    for _ in range(SPARSE_REPS):  # in turns
+        serve_times += wall_times(torch, lambda: chain(serving), 1)
+        factor_times += wall_times(torch, lambda: chain(fit), 1)
+    serve_ms = statistics.median(serve_times) / SERVE_R * 1e3
+    factor_ms = statistics.median(factor_times) / SERVE_R * 1e3
+    print(f"[{card}] serving predict marginal N={N_SERVE} -> {N_TEST} f32, {SERVE_R} chained batches: explicit "
+          f"inverse {serve_ms:.4f} ms/batch, factor {factor_ms:.4f} ms/batch (median of {SPARSE_REPS} chains; "
+          f"all {serve_times} and {factor_times} s)")
+    del fit, serving
+
+    main_fit = main_model.fit(main_data)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    big = main_fit.for_serving()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    a, b = big.predict(xs).marginal(), main_fit.predict(xs).marginal()
+    diffs = (max_rel(a.mean, b.mean), max_rel(a.variance, b.variance))
+    print(f"[{card}] for_serving() at N={N} f32: {build_s:.4f} s, peak device memory {peak:.2f} GiB ({held:.2f} "
+          f"GiB held before it); its predictions at {N_TEST} points against the factor's: mean {diffs[0]:.3e}, "
+          f"variance {diffs[1]:.3e}")
+    if not (diffs[0] <= SERVING_N_TOLS["mean"] and diffs[1] <= SERVING_N_TOLS["variance"]):
+        fail(f"for_serving at N={N} changes the predictions: {diffs}")
+    return {"launches": counts}
+
+
+def check_safe(torch, np, pt, _build, card: str, xs) -> dict:
+    """safe_factorization on a singular gram: N_SAFE_DISTINCT points, each
+    twice, SquaredExponential(0.5, 1.0) with no noise term.  The f32 fit,
+    predictions and log_likelihood are finite; the jitter the escalation
+    chose is printed; the f32 results are held against an f64 fit at that
+    jitter on the card, and a control at 100x that jitter must fail."""
+    from albatross_tpu_torch.ops.linalg import CholeskyFactor
+    from albatross_tpu_torch.ops.radial_gram import radial_gram
+
+    x_np, y_np = bench_data(np, N_SAFE_DISTINCT, SEED + 6)
+    x_np, y_np = np.repeat(x_np, 2), np.repeat(y_np, 2)
+    model = pt.gp_from_covariance(pt.SquaredExponential(LENGTH_SCALE, SIGMA), safe_factorization=True)
+    data = pt.RegressionDataset.create(x_np, y_np, dtype=torch.float32)
+    data64 = pt.RegressionDataset.create(x_np.astype(np.float64), y_np.astype(np.float64), dtype=torch.float64)
+
+    _build.reset_launch_counts()
+    pred = model.fit(data).predict(xs).marginal()
+    ll = model.log_likelihood(data).item()
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    check_counts(f"safe fit + predict + log_likelihood N={2 * N_SAFE_DISTINCT}", counts,
+                 {"radial_gram": 1, "radial_gram_diag": 2, "panel_cholinv": 0})
+    if not (math.isfinite(ll) and torch.isfinite(pred.mean).all() and torch.isfinite(pred.variance).all()):
+        fail(f"the safe f32 fit is not finite: log_likelihood {ll}")
+    zeros = torch.zeros(2 * N_SAFE_DISTINCT, device="cuda")
+    jitter = CholeskyFactor.safe_jitter(radial_gram(data.features, data.features, LENGTH_SCALE, SIGMA, PROFILE,
+                                                    diag_add=zeros))
+    jitter64 = CholeskyFactor.safe_jitter(radial_gram(data64.features, data64.features, LENGTH_SCALE, SIGMA,
+                                                      PROFILE, diag_add=zeros.double()))
+    t = time.perf_counter()
+    model.fit(data)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+
+    def reference(j):
+        ref_model = pt.gp_from_covariance(pt.SquaredExponential(LENGTH_SCALE, SIGMA), jitter=j)
+        return ref_model.log_likelihood(data64).item(), ref_model.fit(data64).predict(xs.double()).marginal()
+
+    def errors_of(pred, ll, ref):
+        ll_ref, p_ref = ref
+        return {"nlml": scalar_rel(ll, ll_ref), "mean": max_rel(pred.mean, p_ref.mean),
+                "variance": max_rel(pred.variance, p_ref.variance)}
+
+    ref = reference(jitter)
+    errors = errors_of(pred, ll, ref)
+    print(f"[{card}] safe fit N={2 * N_SAFE_DISTINCT} ({N_SAFE_DISTINCT} points twice, no noise) f32: jitter "
+          f"chosen {jitter!r} (f64 would choose {jitter64!r}); log_likelihood {ll!r}; fit {fit_s:.4f} s")
+    check_gates(f"safe fit f32 vs an f64 fit at jitter {jitter:g}", errors, SAFE_TOLS)
+    control = errors_of(pred, ll, reference(100.0 * jitter))
+    print("safe fit jitter control (against an f64 fit at 100x the jitter): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in control.items()))
+    if all(control[k] <= SAFE_TOLS[k] for k in SAFE_TOLS):
+        fail(f"the safe-fit gates accept a fit at 100x the chosen jitter: {control}")
+    check_tf32_control(torch, "safe fit", lambda: errors_of(model.fit(data).predict(xs).marginal(),
+                                                          model.log_likelihood(data).item(), ref), SAFE_TOLS)
+    return {"launches": counts, "jitter": jitter}
+
+
+def check_fit_from_prediction(torch, np, pt, _build, card: str, model, data, x_np, y_np) -> dict:
+    """fit_from_prediction round trip: the main fit's joint prediction at
+    N_TEST points FFP_SPACING apart (the prior gram's kappa ~1e4, which an
+    f32 factorization without jitter takes), rebuilt as a fit, predicted
+    again there and held against the first prediction and against the
+    same round trip in f64 on the card, with a TF32 control."""
+    from albatross_tpu_torch.ops.linalg import ExplainedCovariance
+
+    grid = 50.0 + FFP_SPACING * (np.arange(N_TEST) - (N_TEST - 1) / 2.0)
+
+    def round_trip(dtype, count: bool = False):
+        d = data if dtype == np.float32 else pt.RegressionDataset.create(x_np.astype(dtype), y_np.astype(dtype))
+        xg = torch.as_tensor(grid.astype(dtype), device="cuda")
+        fit = model.fit(d)
+        if count:
+            _build.reset_launch_counts()
+        joint = fit.predict(xg).joint()
+        rebuilt = model.fit_from_prediction(xg, joint)
+        again = rebuilt.predict(xg).joint()
+        torch.cuda.synchronize()
+        if not isinstance(rebuilt.fit.train_covariance, ExplainedCovariance):
+            fail(f"fit_from_prediction gave a {type(rebuilt.fit.train_covariance).__name__}")
+        return joint, again, dict(_build.LAUNCHES)
+
+    joint, again, counts = round_trip(np.float32, count=True)
+    check_counts(f"joint predict + fit_from_prediction + joint predict at {N_TEST} points", counts,
+                 {"radial_gram": 5, "radial_gram_diag": 0, "panel_cholinv": 2 * N_TEST // 1024})
+    joint64, again64, _ = round_trip(np.float64)
+
+    def errors_of(joint, again):
+        return {"mean": max_rel(again.mean, joint.mean), "covariance": max_rel(again.covariance, joint.covariance),
+                "f64 mean": max_rel(again.mean, again64.mean),
+                "f64 covariance": max_rel(again.covariance, again64.covariance)}
+
+    errors = errors_of(joint, again)
+    print(f"fit_from_prediction round trip in f64: mean {max_rel(again64.mean, joint64.mean):.3e}, covariance "
+          f"{max_rel(again64.covariance, joint64.covariance):.3e}")
+    check_gates(f"fit_from_prediction round trip at {N_TEST} points f32 (vs the first prediction; vs f64)",
+                errors, FFP_TOLS)
+    check_tf32_control(torch, "fit_from_prediction", lambda: errors_of(*round_trip(np.float32)[:2]), FFP_TOLS)
+    return {"launches": counts}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -1011,6 +1623,17 @@ def main() -> int:
     check_lazy_at_main_n(torch, pt, _build, config, model, data, card, ll.item())
     check_cv(torch, np, pt, _build, card, data)
     lazy = check_lazy_big(torch, np, pt, _build, config, card, args)
+    # -- the serving side and the sparse GP --------------------------------
+    fitc = check_fitc(torch, np, pt, _build, card, args)
+    pitc = check_pitc(torch, np, pt, _build, card)
+    phase_counts = {
+        "fitc": fitc["launches"], "pitc": pitc["launches"], "sparse_update": pitc["update_launches"],
+        "update": check_exact_update(torch, np, pt, _build, card, x_np, y_np, xs)["launches"],
+        "serving": check_serving(torch, np, pt, _build, card, model, data, xs)["launches"],
+        "safe": check_safe(torch, np, pt, _build, card, xs)["launches"],
+        "fit_from_prediction": check_fit_from_prediction(torch, np, pt, _build, card, model, data, x_np,
+                                                         y_np)["launches"],
+    }
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
@@ -1027,6 +1650,9 @@ def main() -> int:
             entry["value_grad_backward_calls"] = grad_counts["backwards"][name]
         if "write_floor_ms" in r:
             entry["write_floor_ms"] = r["write_floor_ms"]
+        entry.update({f"{phase}_launches": counts[name] for phase, counts in phase_counts.items()})
+        if name == "radial_gram":  # the sparse GP's K_fu at (N_FITC, M_FITC)
+            entry.update({f"fitc_cross_{k}": v for k, v in fitc["cross"].items()})
         if name == "radial_gram_diag":  # the lazy loop's column launches of the same kernel
             entry.update({
                 "lazy_launches": lazy["launches"], "lazy_value_grad_launches": lazy["value_grad_launches"],

@@ -384,3 +384,151 @@ def test_gp_on_cuda_matches_cpu_f64(cuda):
     assert _build.LAUNCHES["radial_gram"] >= 1
     assert (got.mean.double().cpu() - ref.mean).abs().max() < 1e-3
     assert (got.variance.double().cpu() - ref.variance).abs().max() < 1e-3
+
+
+def _max_rel(got, ref):
+    return ((got.double().cpu() - ref).abs().max() / ref.abs().max()).item()
+
+
+def _sparse_pair(n, seed, ls, inducing, grouper=None):
+    rng = np.random.default_rng(seed)
+    x = np.sort(rng.uniform(0, 100, n))
+    y = np.sin(0.3 * x) + 0.1 * rng.standard_normal(n)
+    kernel = pt.SquaredExponential(ls, 1.0) + pt.measurement_only(pt.IndependentNoise(0.3, assume_unique=True))
+    model = pt.sparse_gp_from_covariance(kernel, grouper=grouper, inducing_point_strategy=inducing)
+    return (model, pt.RegressionDataset.create(x, y, device="cuda", dtype=torch.float32),
+            pt.RegressionDataset.create(x, y, device="cpu", dtype=torch.float64))
+
+
+def test_fitc_on_cuda_matches_cpu_f64(cuda):
+    """FITC with 2304 inducing points 100 / 2303 ~ l / 2 apart (an inducing
+    gram with kappa ~1e4, factored by three panels of 768): fit + predict
+    launch the cross gram for K_fu, K_uu and the predict cross and the
+    panel kernel three times; predictions, log_likelihood and its gradient
+    (the nuggets included) against f64 on the CPU.  The f32 errors are
+    about 1e-5 of the largest entry; 1e-3 fails a wrong path."""
+    model, on_gpu, on_cpu = _sparse_pair(4000, 7, 0.09, pt.UniformlySpacedInducingPoints(2304))
+    xs = np.linspace(0, 100, 257)
+    _build.reset_launch_counts()
+    got = model.fit(on_gpu).predict(torch.as_tensor(xs, dtype=torch.float32, device=cuda)).marginal()
+    assert _build.LAUNCHES["radial_gram"] == 3 and _build.LAUNCHES["panel_cholinv"] == 3
+    ref = model.fit(on_cpu).predict(torch.as_tensor(xs)).marginal()
+    assert _max_rel(got.mean, ref.mean) < 1e-3 and _max_rel(got.variance, ref.variance) < 1e-3
+    value, grad = _value_grad(model, on_gpu)
+    value_ref, grad_ref = _value_grad(model, on_cpu)
+    assert grad.shape == (5,) and torch.isfinite(grad).all()
+    assert abs(value - value_ref) < 1e-6 * 4000 and _max_rel(grad, grad_ref) < 1e-3
+
+
+def test_pitc_on_cuda_matches_cpu_f64(cuda):
+    """PITC with ragged groups floor(x / 2): one cross-gram launch a group
+    plus K_fu, K_uu and the predict cross; the blocks take one batched
+    library Cholesky (no panel kernel below n = 2048)."""
+    def grouper(features):
+        return np.floor(features.cpu().numpy() / 2.0).astype(np.int64)
+
+    model, on_gpu, on_cpu = _sparse_pair(3000, 8, 0.5, pt.UniformlySpacedInducingPoints(256), grouper)
+    groups = len(np.unique(grouper(on_cpu.features)))
+    xs = np.linspace(0, 100, 129)
+    _build.reset_launch_counts()
+    got = model.fit(on_gpu).predict(torch.as_tensor(xs, dtype=torch.float32, device=cuda)).marginal()
+    assert _build.LAUNCHES["radial_gram"] == groups + 3 and _build.LAUNCHES["panel_cholinv"] == 0
+    ref = model.fit(on_cpu).predict(torch.as_tensor(xs)).marginal()
+    assert _max_rel(got.mean, ref.mean) < 1e-3 and _max_rel(got.variance, ref.variance) < 1e-3
+    ll, ll_ref = model.log_likelihood(on_gpu).item(), model.log_likelihood(on_cpu).item()
+    assert abs(ll - ll_ref) < 1e-6 * 3000
+
+
+def test_exact_update_on_cuda_matches_cpu_f64(cuda):
+    """update of a fit of 2304 points (three panels of 768) with 256 more:
+    the predicted block's crosses and prior are three cross-gram launches,
+    the 256 x 256 Schur complement a library Cholesky; predictions against
+    the same update in f64 on the CPU and against a refit on the card."""
+    from albatross_tpu_torch.ops.block import BlockSymmetric
+
+    rng = np.random.default_rng(9)
+    x = np.sort(rng.uniform(0, 100, 2560))
+    y = np.sin(0.3 * x) + 0.1 * rng.standard_normal(2560)
+    perm = rng.permutation(2560)
+    model = pt.gp_from_covariance(pt.SquaredExponential(0.5, 1.0) + pt.IndependentNoise(0.3, assume_unique=True),
+                                  jitter=1e-4)
+    xs = np.linspace(0, 100, 200)
+    preds = {}
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        first = pt.RegressionDataset.create(x[perm[:2304]], y[perm[:2304]], device=dev, dtype=dtype)
+        rest = pt.RegressionDataset.create(x[perm[2304:]], y[perm[2304:]], device=dev, dtype=dtype)
+        fit = model.fit(first)
+        _build.reset_launch_counts()
+        updated = fit.update(rest)
+        if dev == "cuda":
+            assert _build.LAUNCHES["radial_gram"] == 3 and _build.LAUNCHES["panel_cholinv"] == 0
+            assert isinstance(updated.fit.train_covariance, BlockSymmetric) and updated.for_serving() is updated
+        preds[dev] = updated.predict(torch.as_tensor(xs, dtype=dtype, device=dev)).marginal()
+    full = pt.RegressionDataset.create(x, y, device="cuda", dtype=torch.float32)
+    refit = model.fit(full).predict(torch.as_tensor(xs, dtype=torch.float32, device=cuda)).marginal()
+    got, ref = preds["cuda"], preds["cpu"]
+    assert _max_rel(got.mean, ref.mean) < 1e-3 and _max_rel(got.variance, ref.variance) < 1e-3
+    assert _max_rel(got.mean, refit.mean.double().cpu()) < 1e-3
+
+
+def test_for_serving_on_cuda_matches_cpu_f64(cuda):
+    """for_serving at n = 3072 on the card: the explicit inverse (two
+    Newton-Schulz steps) predicts as the factor does in f64 on the CPU; the
+    inverse's f32 error shows in the variance, a difference of two
+    near-equal terms, hence its 1e-2."""
+    from albatross_tpu_torch.ops.linalg import DirectInverse
+
+    model, x, y = _bench_gp(3072, seed=10)
+    on_gpu = pt.RegressionDataset.create(x, y, device="cuda", dtype=torch.float32)
+    on_cpu = pt.RegressionDataset.create(x, y, device="cpu", dtype=torch.float64)
+    xs = np.linspace(0, 100, 300)
+    _build.reset_launch_counts()
+    serving = model.fit(on_gpu).for_serving()
+    assert isinstance(serving.fit.train_covariance, DirectInverse)
+    assert _build.LAUNCHES["radial_gram_diag"] == 1 and _build.LAUNCHES["panel_cholinv"] == 3
+    got = serving.predict(torch.as_tensor(xs, dtype=torch.float32, device=cuda)).marginal()
+    ref = model.fit(on_cpu).predict(torch.as_tensor(xs)).marginal()
+    assert _max_rel(got.mean, ref.mean) < 1e-3 and _max_rel(got.variance, ref.variance) < 1e-2
+
+
+def test_safe_fit_on_cuda_matches_cpu_f64(cuda):
+    """safe_factorization on 1024 points, each twice, no noise (a singular
+    gram): the f32 fit on the card escalates the jitter through the library
+    Cholesky (no panel kernel), and its predictions and log_likelihood are
+    finite and nearer to an f64 fit at the chosen jitter on the CPU than to
+    one at 100x it."""
+    from albatross_tpu_torch.ops.linalg import CholeskyFactor
+
+    rng = np.random.default_rng(11)
+    x = np.repeat(np.sort(rng.uniform(0, 100, 1024)), 2)
+    y = np.sin(0.3 * x)
+    on_gpu = pt.RegressionDataset.create(x, y, device="cuda", dtype=torch.float32)
+    on_cpu = pt.RegressionDataset.create(x, y, device="cpu", dtype=torch.float64)
+    model = pt.gp_from_covariance(pt.SquaredExponential(0.5, 1.0), safe_factorization=True)
+    xs = torch.linspace(0, 100, 150)
+    _build.reset_launch_counts()
+    got = model.fit(on_gpu).predict(xs.to(cuda)).marginal()
+    ll = model.log_likelihood(on_gpu).item()
+    assert _build.LAUNCHES["panel_cholinv"] == 0
+    assert math.isfinite(ll) and torch.isfinite(got.mean).all() and torch.isfinite(got.variance).all()
+    K = radial_gram(on_gpu.features, on_gpu.features, 0.5, 1.0, diag_add=torch.zeros(2048, device=cuda))
+    jitter = CholeskyFactor.safe_jitter(K)
+    assert jitter > 0
+
+    def err(j):
+        ref = pt.gp_from_covariance(pt.SquaredExponential(0.5, 1.0), jitter=j).fit(on_cpu).predict(
+            xs.double()).marginal()
+        return _max_rel(got.mean, ref.mean)
+
+    assert err(jitter) < 0.1 * err(100.0 * jitter)
+
+
+def test_null_model_predicts_on_the_card(cuda):
+    """NullModel's predictions lie where the features do, integer features
+    included, and on the card for numpy features."""
+    model = pt.NullModel()
+    fit = model.fit(pt.RegressionDataset.create(np.asarray([1.0, 2.0]), np.asarray([3.0, 4.0])))
+    for features in (torch.arange(3, device=cuda), np.asarray([5.0, 6.0, 7.0]), np.asarray([5, 6, 7])):
+        pred = fit.predict(features)
+        assert pred.marginal().mean.device.type == "cuda" and pred.joint().covariance.device.type == "cuda"
+        assert torch.equal(pred.marginal().variance.cpu(), torch.full((3,), 1e4))
