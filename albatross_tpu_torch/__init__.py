@@ -2,11 +2,15 @@
 
 A port of the JAX package ``albatross_tpu`` that keeps its module paths and
 public names: covariance DSL (radial kernels, noise, measurement-only
-terms), exact GP fit / predict / log-likelihood and its gradient (with
+terms, distance metrics, polynomials, scaling terms, means, variant
+(tagged) features, linear combinations, call traces), exact GP fit /
+predict / log-likelihood and its gradient (with
 the lazy-gram loop for large N), its online update, serving mode
 (explicit inverse), fit_from_prediction and safe factorization, the
 sparse FITC / PITC GP, the null, least-squares, conditional and adapted
-models, fast LOO / LOGO cross-validation (``evaluation``, ``indexing``),
+models, RANSAC outlier rejection, the chi-squared and Gaussian
+statistics (``stats``), fast LOO / LOGO cross-validation (``evaluation``,
+``indexing``),
 the tunable-parameter round trip and the tuners (``tuning``), and the
 blocked Cholesky and block solvers beneath them.  Its hot
 spots are hand-written CUDA kernels for Hopper (``csrc/``), built with
@@ -14,7 +18,7 @@ nvcc at first use; CPU tensors take each kernel's plain PyTorch version.
 Importing this package never imports JAX.
 """
 
-from . import config, convert, core, evaluation, indexing, kernels, models, ops, tuning
+from . import config, convert, core, evaluation, indexing, kernels, models, ops, stats, tuning
 from .core import (
     FixedPrior,
     GaussianPrior,
@@ -29,28 +33,43 @@ from .core import (
     RegressionDataset,
     UniformPrior,
     UninformativePrior,
+    concatenate_datasets,
 )
 from .kernels import (
+    AngularDistance,
+    Constant,
+    ConstantTerm,
     EuclideanDistance,
     Exponential,
+    ForTag,
     IndependentNoise,
+    LinearMean,
     Matern32,
     Matern52,
     MeanFunction,
     Measurement,
     Nugget,
+    Polynomial,
+    RadialDistance,
+    ScalingFunction,
+    ScalingTerm,
     SquaredExponential,
+    TaggedBatch,
     ZeroMean,
     as_measurement,
     measurement_only,
 )
 from .models import (
     ConditionalGaussian,
+    DefaultGPRansacStrategy,
+    DefaultRansacStrategy,
     FitModel,
     GaussianProcess,
     LeastSquares,
     LinearRegression,
     NullModel,
+    Ransac,
+    RansacConfig,
     SparseGaussianProcessRegression,
     StateSpaceInducingPointStrategy,
     UniformlySpacedInducingPoints,

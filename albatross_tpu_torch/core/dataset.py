@@ -1,16 +1,17 @@
 """Regression dataset container and its operations.
 
 Counterpart of ``albatross_tpu.core.dataset``.  Features are one tensor
-with leading axis N, shape ``(N,)`` or ``(N, D)``, optionally wrapped in a
-``Measurement`` tag (``transform_dataset`` makes a
-``LinearCombinationBatch``).  Index arithmetic that shapes the result
-(deduplication, alignment) runs on the host in numpy.
+with leading axis N, shape ``(N,)`` or ``(N, D)``, or a structured batch:
+a ``TaggedBatch`` of mixed feature kinds, a ``LinearCombinationBatch``
+(``transform_dataset`` makes one), a ``ConstantTerm``; any of them may be
+wrapped in a ``Measurement`` tag.  Index arithmetic that shapes the result
+(deduplication, alignment, tagged subsets) runs on the host in numpy.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -18,31 +19,72 @@ import torch
 from .distributions import MarginalDistribution, as_index, concatenate_marginals
 
 
+def first_leaf(features) -> torch.Tensor:
+    """The first tensor of a feature batch, as the JAX package's
+    ``tree_leaves(features)[0]``: the tensor itself, a Measurement's or a
+    TaggedBatch's first sub-batch's, a LinearCombinationBatch's values, a
+    ConstantTerm's marker."""
+    from ..kernels.features import LinearCombinationBatch, Measurement
+    from ..kernels.polynomials import ConstantTerm
+    from ..kernels.variants import TaggedBatch
+
+    if isinstance(features, Measurement):
+        return first_leaf(features.value)
+    if isinstance(features, TaggedBatch):
+        return first_leaf(features.features[0])
+    if isinstance(features, LinearCombinationBatch):
+        return features.values
+    if isinstance(features, ConstantTerm):
+        return features.marker
+    return features
+
+
+def float_like(features) -> dict:
+    """``dtype`` and ``device`` keywords for a tensor built from a feature
+    batch: its first tensor's device, and its dtype when that is a float
+    type (integer ids give the default float dtype)."""
+    leaf = first_leaf(features)
+    dtype = leaf.dtype if leaf.is_floating_point() else torch.get_default_dtype()
+    return {"dtype": dtype, "device": leaf.device}
+
+
 def feature_count(features) -> int:
-    """Leading-axis length of a feature batch (Measurement-aware)."""
+    """Leading-axis length of a feature batch; the wrappers (Measurement,
+    TaggedBatch, LinearCombinationBatch, ConstantTerm) report their own
+    size."""
     from ..kernels.features import LinearCombinationBatch, strip_measurement
+    from ..kernels.polynomials import ConstantTerm
+    from ..kernels.variants import TaggedBatch
 
     raw, _ = strip_measurement(features)
-    if isinstance(raw, LinearCombinationBatch):
+    if isinstance(raw, (LinearCombinationBatch, TaggedBatch, ConstantTerm)):
         return raw.size
     return raw.shape[0]
 
 
 def subset_features(features, indices):
-    """The rows ``indices`` of a feature batch (a Measurement stays one)."""
+    """The rows ``indices`` of a feature batch (a Measurement stays one; a
+    TaggedBatch is subset by its interleaved positions)."""
     from ..kernels.features import Measurement
+    from ..kernels.variants import TaggedBatch
 
     if isinstance(features, Measurement):
         return Measurement(subset_features(features.value, indices))
+    if isinstance(features, TaggedBatch):
+        return features.subset(host_array(indices))
     return features[as_index(indices, features.device)]
 
 
 def concatenate_features(feature_list: Sequence):
-    """Concatenate feature batches along the example axis."""
+    """Concatenate feature batches along the example axis; TaggedBatches
+    concatenate tag by tag, keeping the interleaved order."""
     from ..kernels.features import Measurement
+    from ..kernels.variants import TaggedBatch
 
     if feature_list and all(isinstance(f, Measurement) for f in feature_list):
         return Measurement(concatenate_features([f.value for f in feature_list]))
+    if feature_list and all(isinstance(f, TaggedBatch) for f in feature_list):
+        return TaggedBatch.concatenate(list(feature_list))
     return torch.cat(list(feature_list), dim=0)
 
 
@@ -58,7 +100,7 @@ def host_array(values) -> np.ndarray:
 class RegressionDataset:
     """Features + target distribution + string metadata."""
 
-    features: torch.Tensor
+    features: Any
     targets: MarginalDistribution
     metadata: Dict[str, str] = dataclasses.field(default_factory=dict)
 
@@ -77,20 +119,29 @@ class RegressionDataset:
         ``device``/``dtype`` place the features and targets together.  By
         default a tensor keeps its device and dtype; other features (numpy
         arrays, lists) go to the card, ``config.device(None)``, and keep
-        their dtype."""
+        their dtype.  A TaggedBatch or LinearCombinationBatch keeps its
+        tensors; the targets go to its first tensor's device and float
+        dtype unless ``device``/``dtype`` say otherwise."""
         from .. import config
+        from ..kernels.features import LinearCombinationBatch
+        from ..kernels.variants import TaggedBatch
 
-        keep = device is None and isinstance(features, torch.Tensor)
-        dev = features.device if keep else config.device(device)
-        features = torch.as_tensor(features)
-        dt = features.dtype if dtype is None else dtype
-        features = features.to(device=dev, dtype=dt)
+        if isinstance(features, (TaggedBatch, LinearCombinationBatch)):
+            like = float_like(features)
+            dev = like["device"] if device is None else config.device(device)
+            dt = like["dtype"] if dtype is None else dtype
+        else:
+            keep = device is None and isinstance(features, torch.Tensor)
+            dev = features.device if keep else config.device(device)
+            features = torch.as_tensor(features)
+            dt = features.dtype if dtype is None else dtype
+            features = features.to(device=dev, dtype=dt)
         if not isinstance(targets, MarginalDistribution):
             targets = torch.as_tensor(targets, device=dev, dtype=dt)
             if variance is not None:
                 variance = torch.as_tensor(variance, device=dev, dtype=dt)
             targets = MarginalDistribution.create(targets, variance)
-        n = features.shape[0]
+        n = feature_count(features)
         if targets.size != n:
             raise ValueError(f"features ({n}) and targets ({targets.size}) disagree")
         return cls(features, targets, metadata or {})

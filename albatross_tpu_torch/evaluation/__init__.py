@@ -17,6 +17,7 @@ from .folds import (
     leave_one_out_folds,
 )
 from .metrics import (
+    ChiSquaredCdf,
     Crps,
     NegativeLogLikelihood,
     PredictionMetric,

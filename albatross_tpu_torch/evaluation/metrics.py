@@ -5,9 +5,9 @@ callable ``metric(prediction, truth: MarginalDistribution) -> scalar`` that
 declares the prediction type it needs (``required_predict_type``), so
 cross-validation asks for the cheapest one.  Ported here: RMSE, the
 residuals' standard deviation, the marginal and joint negative log
-likelihood, and the closed-form CRPS.  ``ChiSquaredCdf`` waits for
-``stats/``; ``energy_score``, ``variogram_score`` and ``wasserstein_2`` for
-a later slice.
+likelihood, the closed-form CRPS and the chi-squared CDF of the
+Mahalanobis statistic.  ``energy_score``, ``variogram_score`` and
+``wasserstein_2`` wait for a later slice.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch
 
 from ..core.distributions import JointDistribution, MarginalDistribution
 from ..ops.linalg import CholeskyFactor
+from ..stats.chi_squared import chi_squared_cdf
 
 LOG_2PI = math.log(2.0 * math.pi)
 
@@ -79,6 +80,16 @@ def negative_log_likelihood_joint(prediction: JointDistribution, truth: Marginal
     chol = CholeskyFactor.factorize(prediction.covariance + torch.diag(truth.get_variance()))
     white = chol.sqrt_solve(deviation)
     return 0.5 * (chol.log_determinant() + torch.sum(white * white) + deviation.shape[0] * LOG_2PI)
+
+
+class ChiSquaredCdf(PredictionMetric):
+    """CDF of the Mahalanobis statistic of the deviation under chi^2(n)."""
+
+    required_predict_type = JointDistribution
+
+    def evaluate(self, prediction: JointDistribution, truth):
+        covariance = prediction.covariance + torch.diag(truth.get_variance())
+        return chi_squared_cdf(prediction.mean - truth.mean, covariance)
 
 
 class NegativeLogLikelihood(PredictionMetric):

@@ -21,10 +21,17 @@ class MeasurementOnly(CovarianceFunction):
         return f"measurement[{self.sub.name}]"
 
     def _matrix(self, X, Y, x_meas, y_meas):
-        inner = self.sub._matrix(X, Y, x_meas, y_meas)
-        if inner is None:
-            return None
-        if x_meas and y_meas:
+        return self._measured(self.sub._matrix(X, Y, x_meas, y_meas), x_meas and y_meas)
+
+    def _tagged_matrix(self, X, Y, tx, ty, x_meas, y_meas):
+        return self._measured(self.sub._tagged_matrix(X, Y, tx, ty, x_meas, y_meas), x_meas and y_meas)
+
+    def _tagged_diag(self, X, tx, x_meas):
+        return self._measured(self.sub._tagged_diag(X, tx, x_meas), x_meas)
+
+    @staticmethod
+    def _measured(inner, live: bool):
+        if inner is None or live:
             return inner
         return torch.zeros_like(inner)
 
@@ -32,12 +39,7 @@ class MeasurementOnly(CovarianceFunction):
         return self.sub._symmetric_exact(X)
 
     def _diag(self, X, x_meas):
-        inner = self.sub._diag(X, x_meas)
-        if inner is None:
-            return None
-        if x_meas:
-            return inner
-        return torch.zeros_like(inner)
+        return self._measured(self.sub._diag(X, x_meas), x_meas)
 
 
 def measurement_only(sub: CovarianceFunction) -> MeasurementOnly:

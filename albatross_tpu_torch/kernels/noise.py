@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.dataset import feature_count, first_leaf, float_like
 from ..core.parameters import Parameter
 from ..core.priors import FixedPrior, PositivePrior
 from .base import CovarianceFunction
@@ -39,12 +40,13 @@ class _EqualityNoise(CovarianceFunction):
 
     def _matrix(self, X, Y, x_meas, y_meas):
         sigma2 = self._sigma2()
+        like = float_like(X)
         if X is Y and self.assume_unique:
-            return sigma2 * torch.eye(X.shape[0], dtype=X.dtype, device=X.device)
-        return sigma2 * equality_matrix(X, Y).to(X.dtype)
+            return sigma2 * torch.eye(feature_count(X), **like)
+        return sigma2 * equality_matrix(first_leaf(X), first_leaf(Y)).to(like["dtype"])
 
     def _diag(self, X, x_meas):
-        return torch.zeros(X.shape[0], dtype=X.dtype, device=X.device) + self._sigma2()
+        return torch.zeros(feature_count(X), **float_like(X)) + self._sigma2()
 
 
 class IndependentNoise(_EqualityNoise):

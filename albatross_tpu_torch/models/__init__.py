@@ -13,6 +13,23 @@ from .gp import (
 )
 from .least_squares import LeastSquares, LeastSquaresFit, LinearRegression
 from .null import NullModel
+from .ransac import (
+    ChiSquaredConsensusMetric,
+    ChiSquaredIsValidCandidateMetric,
+    DefaultGPRansacStrategy,
+    DefaultRansacStrategy,
+    DifferentialEntropyConsensusMetric,
+    FeatureCountConsensusMetric,
+    GaussianProcessRansacStrategy,
+    GenericRansacStrategy,
+    Ransac,
+    RansacConfig,
+    RansacOutput,
+    RansacReturnCode,
+    gp_ransac_strategy,
+    ransac,
+    ransac_success,
+)
 from .sparse_gp import (
     EveryPointGrouper,
     SparseGaussianProcessRegression,

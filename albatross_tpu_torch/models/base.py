@@ -39,6 +39,11 @@ class ModelBase(Module):
 
         return CrossValidation(self)
 
+    def ransac(self, strategy, config, **kwargs):
+        from .ransac import Ransac
+
+        return Ransac(self, strategy, config, **kwargs)
+
     @property
     def model_name(self) -> str:
         return type(self).__name__.lower()

@@ -114,9 +114,10 @@ def accurate_log(x: torch.Tensor):
 
 
 def _guarded_log_terms(flat: torch.Tensor):
-    """Split sum(log) over ``flat`` into a double-word part over the valid
-    (positive finite normal) entries and a plain sum of builtin logs over the
-    others, which keeps exact -inf / NaN propagation."""
+    """Split sum(log) over the last axis of ``flat`` into a double-word part
+    over the valid (positive finite normal) entries and a plain sum of
+    builtin logs over the others, which keeps exact -inf / NaN
+    propagation."""
     f32 = flat.dtype == torch.float32
     valid = torch.isfinite(flat) & (flat >= torch.finfo(flat.dtype).tiny)
     safe = torch.where(valid, flat, torch.ones_like(flat))
@@ -127,17 +128,22 @@ def _guarded_log_terms(flat: torch.Tensor):
     else:
         h = torch.where(valid, torch.log(safe), torch.zeros_like(safe))
         l = None
-    bad = torch.sum(torch.where(valid, torch.zeros_like(flat), torch.log(flat)))
+    bad = torch.sum(torch.where(valid, torch.zeros_like(flat), torch.log(flat)), dim=-1)
     return h, l, bad
 
 
-def accurate_sum_of_logs(x: torch.Tensor, where=None) -> torch.Tensor:
-    """sum(log x) over all elements of ``x``: accurate per-element logs in
-    f32 plus a double-word reduction; entries where ``where`` is False
-    contribute exactly 0."""
-    flat = x.reshape(-1)
+def accurate_sum_of_logs(x: torch.Tensor, where=None, dim=None) -> torch.Tensor:
+    """sum(log x) over all elements of ``x``, or along ``dim`` for each
+    slice: accurate per-element logs in f32 plus a double-word reduction;
+    entries where ``where`` (x's shape) is False contribute exactly 0."""
+    if dim is None:
+        flat = x.reshape(-1)
+        where = None if where is None else torch.as_tensor(where).reshape(-1)
+    else:
+        flat = torch.movedim(x, dim, -1)
+        where = None if where is None else torch.movedim(torch.as_tensor(where), dim, -1)
     if where is not None:
-        flat = torch.where(torch.as_tensor(where).reshape(-1), flat, torch.ones_like(flat))
+        flat = torch.where(where, flat, torch.ones_like(flat))
     h, l, bad = _guarded_log_terms(flat)
     sh, sl = dw_sum(h, l)
     return sh + sl + bad

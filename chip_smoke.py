@@ -42,7 +42,14 @@ main path's N against a refit, ``for_serving`` (bench.py's serving row:
 chained predict batches against the factor, the Newton-Schulz residuals
 and what raises them,
 the construction at N = 28672), ``safe_factorization`` on a singular gram,
-and a ``fit_from_prediction`` round trip.  Any failed check raises.  Each kernel's time is printed
+a ``fit_from_prediction`` round trip, the reference's temperature model
+at N = 8192 stations (log_likelihood, fit -> predict on a sea-level grid,
+fast LOO, RANSAC over 1% injected outliers; angular and radial metrics
+over 4-column station rows) and a mixed-feature model over a TaggedBatch
+of 8128 positions and 64 bias ids (fit, log_likelihood, predictions at
+positions and at differences of positions), each held against f64 on the
+card with a TF32 control and its launches counted.  Any failed check
+raises.  Each kernel's time is printed
 beside its bound (the least time the card could take for the same work);
 the gram kernels also beside the card's write floor, a ``fill_`` of a
 buffer of the gram's shape.
@@ -60,6 +67,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib
 import json
 import math
 import re
@@ -101,6 +109,15 @@ N_UPDATE_FIRST = 24576  # the exact update: fit on these, update with the rest o
 N_SERVE, SERVE_LS, SERVE_R = 8192, 2.0, 64  # bench.py's serving row; R chained batches of N_TEST
 N_SAFE_DISTINCT = 4096  # the safe fit: each of these points twice, no noise term
 FFP_SPACING = 0.25  # fit_from_prediction at N_TEST points LENGTH_SCALE / 2 apart
+# the temperature model (albatross_tpu_torch/temperature.py) at N_TEMP
+# synthesized stations, a TEMP_GRID x TEMP_GRID sea-level grid, 1% of the
+# stations made outliers, RANSAC with the example's configuration and
+# TEMP_ITERATIONS iterations; the mixed-feature model at N_POS positions +
+# N_BIAS bias ids (8 panels of 1024), predicted at N_TEST positions and
+# at N_PAIRS differences of positions
+N_TEMP, TEMP_GRID, TEMP_OUTLIERS, TEMP_ITERATIONS = 8192, 64, 82, 64
+N_POS, N_BIAS, N_PAIRS = 8128, 64, 2048
+PHASE_REPS = 3
 # NVIDIA's data sheet for the H100 SXM: device memory rate, and the FP32
 # rate outside the tensor cores (the panel kernel and the grams use no
 # tensor cores).
@@ -166,6 +183,18 @@ SERVING_TOLS = {"mean": 5.3e-6, "variance": 0.53, "factor mean": 5.3e-6, "factor
 SERVING_N_TOLS = {"mean": 5.3e-6, "variance": 0.18}
 SAFE_TOLS = {"nlml": 0.1, "mean": 0.6, "variance": 0.075}
 FFP_TOLS = {"mean": 4.8e-3, "covariance": 4.2e-6, "f64 mean": 5.8e-5, "f64 covariance": 2.3e-5}
+# The temperature and mixed-feature phases, f32 against the same calls in
+# f64 on the card, about 10x the first reading on H100 (PERF.md sections
+# 2 and 6): temperature NLML 3.7e-3, mean 5.8e-3, variance 4.8e-2, LOO
+# 7.7e-3 / 7.0e-2, RANSAC metrics 1.7e-2; mixed NLML 6.7e-6, mean 1.3e-4,
+# variance 5.7e-6, differences 7.5e-5 / 3.7e-6.  The temperature model's
+# f32 error is set by its angular metric: acos near 1 resolves no angle
+# below ~3.5e-4 rad in f32 (6.3e-4 rad read), against a nearest-neighbour
+# angle of 1.0e-3 rad.  TF32 makes both phases' factorizations NaN.
+TEMP_TOLS = {"nlml": 3.7e-2, "mean": 5.8e-2, "variance": 0.48, "loo mean": 7.7e-2, "loo variance": 0.70,
+             "ransac metrics": 0.17}
+MIXED_TOLS = {"nlml": 6.7e-5, "mean": 1.3e-3, "variance": 5.7e-5, "difference mean": 7.5e-4,
+              "difference variance": 3.7e-5}
 
 SOURCES = {
     "radial_gram": ("albatross_tpu_torch/csrc/radial_gram.cu", "albatross_tpu/ops/pallas_gram.py:81"),
@@ -1328,6 +1357,210 @@ def check_fit_from_prediction(torch, np, pt, _build, card: str, model, data, x_n
     return {"launches": counts}
 
 
+def check_temperature(torch, np, pt, _build, card: str) -> dict:
+    """The reference's temperature model (albatross_tpu_torch/temperature.py)
+    at N_TEMP synthesized stations, f32 on the card, against the same calls
+    in f64 on the card, with a TF32 control: log_likelihood; fit ->
+    marginal prediction on a TEMP_GRID^2 sea-level grid; fast LOO
+    marginals; RANSAC with the example's configuration over data with
+    TEMP_OUTLIERS injected outliers, compared by its audit trail (the
+    inlier metric of every group under every candidate: the same numpy
+    draws in both dtypes) and its consensus.  Each step's launches are
+    counted: the angular and radial metrics are not Euclidean, so the grams
+    are torch ops and only the panel kernel runs (8 panels a fit; RANSAC's
+    candidate fits are one batched library Cholesky, so its panels are the
+    refit's).  Times are medians of PHASE_REPS."""
+    from albatross_tpu_torch import temperature as tt
+    from albatross_tpu_torch.indexing import LeaveOneOutGrouper, indices_from_groups
+    from albatross_tpu_torch.kernels import AngularDistance
+    from albatross_tpu_torch.ops.blocked_cholesky import cuda_block_size
+
+    ransac_mod = importlib.import_module("albatross_tpu_torch.models.ransac")
+    rng = np.random.default_rng(SEED + 7)
+    stations, obs, _ = tt.synthesize_stations(N_TEMP, rng)
+    bad, bad_idx = tt.inject_outliers(obs, TEMP_OUTLIERS, rng)
+    bad_set = set(int(i) for i in bad_idx)
+    repeats = N_TEMP - len(np.unique(stations.astype(np.float32), axis=0))
+    model = tt.build_model()
+    config = tt.ransac_config(N_TEMP, TEMP_ITERATIONS)
+    strategy = pt.models.DefaultGPRansacStrategy()
+    grid_np = tt.sea_level_grid(TEMP_GRID, TEMP_GRID)
+
+    def datasets(dtype):
+        ones = np.ones(N_TEMP, dtype)
+        return (pt.RegressionDataset.create(stations.astype(dtype), obs.astype(dtype), variance=ones),
+                pt.RegressionDataset.create(stations.astype(dtype), bad.astype(dtype), variance=ones),
+                torch.as_tensor(grid_np.astype(dtype), device="cuda"))
+
+    def run(dtype) -> dict:
+        data, contaminated, grid = datasets(dtype)
+        out = {"launches": {}}
+
+        def step(name, fn):
+            _build.reset_launch_counts()
+            result = fn()
+            torch.cuda.synchronize()
+            out["launches"][name] = dict(_build.LAUNCHES)
+            return result
+
+        out["nlml"] = step("log_likelihood", lambda: model.log_likelihood(data).item())
+        out["pred"] = step("fit + predict", lambda: model.fit(data).predict(grid).marginal())
+        out["loo"] = step("LOO", lambda: model.cross_validate().predict(data, LeaveOneOutGrouper()).marginal())
+        out["ransac"] = step("RANSAC", lambda: model.ransac(strategy, config).fit(contaminated).fit)
+        return out
+
+    got = run(np.float32)
+    ref = run(np.float64)
+    out32, out64 = got["ransac"].ransac_output, ref["ransac"].ransac_output
+
+    def audit_values(output):
+        return [{**it.inliers, **it.outliers} for it in output.iterations]
+
+    def errors_of(run_):
+        a32, a64 = audit_values(run_["ransac"].ransac_output), audit_values(out64)
+        if [sorted(a) for a in a32] != [sorted(a) for a in a64]:
+            fail("the f32 and f64 RANSAC runs drew different candidates")
+        m32 = torch.tensor([[a[k] for k in sorted(a)] for a in a32], dtype=torch.float64)
+        m64 = torch.tensor([[a[k] for k in sorted(a)] for a in a64], dtype=torch.float64)
+        return {"nlml": scalar_rel(run_["nlml"], ref["nlml"]), "mean": max_rel(run_["pred"].mean, ref["pred"].mean),
+                "variance": max_rel(run_["pred"].variance, ref["pred"].variance),
+                "loo mean": max_rel(run_["loo"].mean, ref["loo"].mean),
+                "loo variance": max_rel(run_["loo"].variance, ref["loo"].variance),
+                "ransac metrics": max_rel(m32, m64)}
+
+    errors = errors_of(got)
+    rejected32 = set(range(N_TEMP)) - set(out32.best.consensus())
+    rejected64 = set(range(N_TEMP)) - set(out64.best.consensus())
+    print(f"temperature N={N_TEMP}: {repeats} repeated f32 station rows; log_likelihood f32 {got['nlml']!r}, "
+          f"f64 {ref['nlml']!r}; RANSAC f32 {out32.return_code.name}, {len(out32.iterations)} iterations, "
+          f"rejected {len(rejected32)} ({len(rejected32 & bad_set)} of the {TEMP_OUTLIERS} injected), f64 "
+          f"{out64.return_code.name}, rejected {len(rejected64)} ({len(rejected64 & bad_set)} injected); "
+          f"consensus symmetric difference {len(rejected32 ^ rejected64)}")
+    for name, counts in got["launches"].items():
+        print(f"temperature {name} launches: {counts}")
+    # the angular metric's f32 floor: the diagonal of K(X, X), zero in exact
+    # arithmetic, and the distances' error against f64
+    X32 = torch.as_tensor(stations[:, :3].astype(np.float32), device="cuda")
+    D32 = AngularDistance().pairwise(X32, X32)
+    D64 = AngularDistance().pairwise(X32.double(), X32.double())
+    print(f"temperature angular distance f32: diagonal max {D32.diagonal().max().item():.3e} rad "
+          f"({int((D32.diagonal() > 0).sum())} of {N_TEMP} nonzero; f64 max {D64.diagonal().max().item():.3e}); "
+          f"max|f32 - f64| over K(X, X) {(D32.double() - D64).abs().max().item():.3e} rad; nearest-neighbour "
+          f"angle median {D64.fill_diagonal_(math.inf).min(dim=1).values.median().item():.3e} rad")
+    del X32, D32, D64
+    check_gates(f"temperature N={N_TEMP} f32 vs f64 on the card", errors, TEMP_TOLS)
+    if not (pt.models.ransac_success(out32.return_code) and pt.models.ransac_success(out64.return_code)):
+        fail(f"temperature RANSAC: f32 {out32.return_code.name}, f64 {out64.return_code.name}")
+    n_good = N_TEMP - len(rejected32)
+    b = cuda_block_size(n_good)
+    expected = {"log_likelihood": 8, "fit + predict": 8, "LOO": 8, "RANSAC": -(-n_good // b)}
+    for name, panels in expected.items():
+        check_counts(f"temperature {name}", got["launches"][name],
+                     {"radial_gram": 0, "radial_gram_diag": 0, "radial_gram_cols": 0, "panel_cholinv": panels})
+    check_tf32_control(torch, "temperature", lambda: errors_of(run(np.float32)), TEMP_TOLS)
+
+    data, contaminated, grid = datasets(np.float32)
+    indexer = strategy.get_indexer(contaminated)
+    good = indices_from_groups(indexer, out32.best.consensus())
+    conditional = pt.ConditionalGaussian(model.prior(contaminated.features), contaminated.targets)
+    candidates = np.stack([np.sort(rng.choice(N_TEMP, config.random_sample_size, replace=False))
+                           for _ in range(TEMP_ITERATIONS)])
+    groups = np.arange(N_TEMP)[:, None]
+    times = {
+        "log_likelihood": wall_times(torch, lambda: model.log_likelihood(data), PHASE_REPS),
+        "fit + predict": wall_times(torch, lambda: model.fit(data).predict(grid).marginal(), PHASE_REPS),
+        "LOO": wall_times(torch, lambda: model.cross_validate().predict(data, LeaveOneOutGrouper()).marginal(),
+                          PHASE_REPS),
+        "RANSAC prior": wall_times(torch, lambda: model.prior(contaminated.features), PHASE_REPS),
+        f"RANSAC batched scores ({TEMP_ITERATIONS} x {N_TEMP}, read back)": wall_times(
+            torch, lambda: ransac_mod.batched_inlier_metrics(conditional, candidates, groups).cpu(), PHASE_REPS),
+        "RANSAC loop (prior, scores, host replay)": wall_times(
+            torch, lambda: ransac_mod.ransac_gp_batched(strategy, model, contaminated, config), PHASE_REPS),
+        "RANSAC refit": wall_times(torch, lambda: model.fit(contaminated.subset(good)), PHASE_REPS),
+    }
+    print(f"[{card}] temperature N={N_TEMP} f32 (median of {PHASE_REPS}, s): "
+          + "; ".join(f"{k} {statistics.median(v):.4f} (all {v})" for k, v in times.items()))
+    total = {k: sum(c[k] for c in got["launches"].values()) for k in got["launches"]["log_likelihood"]}
+    return {"launches": total}
+
+
+def check_mixed(torch, np, pt, _build, card: str) -> dict:
+    """The mixed-feature model (tests/test_variants.py's kernel plus
+    measurement noise) over a TaggedBatch of N_POS sorted positions and
+    N_BIAS bias ids interleaved by a seeded permutation, target variance
+    0.01, f32 on the card against the same calls in f64 on the card, with a
+    TF32 control: fit, log_likelihood, marginal predictions at N_TEST plain
+    positions and at N_PAIRS differences of positions.  The Euclidean
+    positions' block, the cross gram and the differences' flattened gram
+    launch the gram kernel; each fit factors 8 panels."""
+    from albatross_tpu_torch.kernels import TaggedBatch, difference_of, for_tag
+
+    POS, BIAS = 0, 1
+    rng = np.random.default_rng(SEED + 8)
+    positions = np.sort(rng.uniform(0.0, 100.0, N_POS))
+    ids = np.arange(N_BIAS, dtype=np.float64)
+    tags = rng.permutation(np.repeat([POS, BIAS], [N_POS, N_BIAS]))
+    bias_values = rng.normal(0.0, 0.7, N_BIAS)
+    y = np.empty(N_POS + N_BIAS)
+    y[tags == POS] = np.sin(0.3 * positions)
+    y[tags == BIAS] = bias_values
+    y += 0.1 * rng.standard_normal(y.shape[0])
+    a, b = rng.uniform(0.0, 100.0, N_PAIRS), rng.uniform(0.0, 100.0, N_PAIRS)
+    kernel = (for_tag(pt.SquaredExponential(2.0, 1.5), POS) + for_tag(pt.IndependentNoise(0.7), BIAS)
+              + pt.Constant(0.3) + pt.measurement_only(pt.IndependentNoise(0.1)))
+    model = pt.gp_from_covariance(kernel)
+
+    def inputs(dtype):
+        t = {k: torch.as_tensor(v.astype(dtype), device="cuda") for k, v in
+             (("pos", positions), ("ids", ids), ("y", y), ("a", a), ("b", b))}
+        batch = TaggedBatch.create(tags, {POS: t["pos"], BIAS: t["ids"]})
+        data = pt.RegressionDataset.create(batch, t["y"], variance=torch.full_like(t["y"], 0.01))
+        return data, torch.linspace(0.0, 100.0, N_TEST, dtype=t["y"].dtype, device="cuda"), difference_of(t["a"], t["b"])
+
+    def run(dtype) -> dict:
+        data, xs, diffs = inputs(dtype)
+        out = {"launches": {}}
+
+        def step(name, fn):
+            _build.reset_launch_counts()
+            result = fn()
+            torch.cuda.synchronize()
+            out["launches"][name] = dict(_build.LAUNCHES)
+            return result
+
+        fit = step("fit", lambda: model.fit(data))
+        out["nlml"] = step("log_likelihood", lambda: model.log_likelihood(data).item())
+        out["pred"] = step("predict", lambda: fit.predict(xs).marginal())
+        out["diff"] = step("predict differences", lambda: fit.predict(diffs).marginal())
+        return out
+
+    got, ref = run(np.float32), run(np.float64)
+
+    def errors_of(r):
+        return {"nlml": scalar_rel(r["nlml"], ref["nlml"]), "mean": max_rel(r["pred"].mean, ref["pred"].mean),
+                "variance": max_rel(r["pred"].variance, ref["pred"].variance),
+                "difference mean": max_rel(r["diff"].mean, ref["diff"].mean),
+                "difference variance": max_rel(r["diff"].variance, ref["diff"].variance)}
+
+    errors = errors_of(got)
+    repeats = N_POS - len(np.unique(positions.astype(np.float32)))
+    print(f"mixed features {N_POS} positions + {N_BIAS} bias ids: {repeats} repeated f32 positions; "
+          f"log_likelihood f32 {got['nlml']!r}, f64 {ref['nlml']!r}")
+    check_gates(f"mixed features N={N_POS + N_BIAS} f32 vs f64 on the card", errors, MIXED_TOLS)
+    expected = {"fit": (1, 8), "log_likelihood": (1, 8), "predict": (1, 0), "predict differences": (2, 0)}
+    for name, (grams, panels) in expected.items():
+        check_counts(f"mixed features {name}", got["launches"][name],
+                     {"radial_gram": grams, "radial_gram_diag": 0, "radial_gram_cols": 0, "panel_cholinv": panels})
+    check_tf32_control(torch, "mixed features", lambda: errors_of(run(np.float32)), MIXED_TOLS)
+    data, xs, diffs = inputs(np.float32)
+    times = {"fit": wall_times(torch, lambda: model.fit(data), PHASE_REPS),
+             "log_likelihood": wall_times(torch, lambda: model.log_likelihood(data), PHASE_REPS)}
+    print(f"[{card}] mixed features N={N_POS + N_BIAS} f32 (median of {PHASE_REPS}, s): "
+          + "; ".join(f"{k} {statistics.median(v):.4f} (all {v})" for k, v in times.items()))
+    total = {k: sum(c[k] for c in got["launches"].values()) for k in got["launches"]["fit"]}
+    return {"launches": total}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -1633,6 +1866,9 @@ def main() -> int:
         "safe": check_safe(torch, np, pt, _build, card, xs)["launches"],
         "fit_from_prediction": check_fit_from_prediction(torch, np, pt, _build, card, model, data, x_np,
                                                          y_np)["launches"],
+        # -- the rest of the covariance DSL: composed kernels, RANSAC, mixed features
+        "temperature": check_temperature(torch, np, pt, _build, card)["launches"],
+        "mixed": check_mixed(torch, np, pt, _build, card)["launches"],
     }
 
     kernels = []

@@ -532,3 +532,74 @@ def test_null_model_predicts_on_the_card(cuda):
         pred = fit.predict(features)
         assert pred.marginal().mean.device.type == "cuda" and pred.joint().covariance.device.type == "cuda"
         assert torch.equal(pred.marginal().variance.cpu(), torch.full((3,), 1e4))
+
+
+def test_temperature_model_on_cuda_matches_cpu_f64(cuda):
+    """The temperature model (angular and radial metrics over station rows)
+    at n = 3072: f32 on the card against f64 on the CPU, at bounds set by
+    the angular metric's f32 floor (acos near 1 resolves no angle below
+    ~3.5e-4 rad; on the CPU in f32 the same model is 2.3e-3 / 1.5e-3 /
+    3.5e-2 off in NLML / mean / variance); f64 on the card against the CPU
+    at 10x the first reading (3.7e-8 / 4.7e-8 / 4.4e-7 on H100): the same
+    floor in f64, where the card's and the CPU's products round the
+    diagonal dots 1 ulp apart, which moves those angles between 0 and
+    1.5e-8 rad.  Only the panel kernel launches: three panels of 1024 a
+    factorization."""
+    from albatross_tpu_torch import temperature as tt
+
+    n = 3072
+    stations, obs, _ = tt.synthesize_stations(n, np.random.default_rng(11))
+    grid = tt.sea_level_grid(16, 16)
+    model = tt.build_model()
+    out = {}
+    for where, dtype in (("cpu", torch.float64), ("cuda", torch.float64), ("cuda", torch.float32)):
+        data = pt.RegressionDataset.create(stations, obs, variance=np.ones(n), device=where, dtype=dtype)
+        _build.reset_launch_counts()
+        ll = model.log_likelihood(data).item()
+        pred = model.fit(data).predict(torch.as_tensor(grid, dtype=dtype, device=where)).marginal()
+        out[where, dtype] = ll, pred, dict(_build.LAUNCHES)
+    ll_ref, ref, _ = out["cpu", torch.float64]
+    for dtype, bounds in ((torch.float64, (4e-7, 5e-7, 4.4e-6)), (torch.float32, (1e-2, 1e-2, 0.2))):
+        ll, pred, counts = out["cuda", dtype]
+        errors = (abs(ll - ll_ref) / abs(ll_ref), _max_rel(pred.mean, ref.mean), _max_rel(pred.variance, ref.variance))
+        print(f"temperature n={n} {dtype} card vs CPU f64: {errors}, launches {counts}")
+        assert all(e <= b for e, b in zip(errors, bounds)), (dtype, errors)
+        assert counts["radial_gram"] == 0
+        assert counts["panel_cholinv"] == (6 if dtype == torch.float32 else 0)
+
+
+def test_mixed_feature_model_launches_the_gram_kernel(cuda):
+    """A TaggedBatch of 2240 positions and 64 bias ids: the positions'
+    Euclidean block and the cross gram run the gram kernel, the
+    factorization three panels of 768; f32 on the card against f64 on the
+    CPU, within about 10x the first reading on H100 (5.5e-4)."""
+    from albatross_tpu_torch.kernels import TaggedBatch, difference_of, for_tag
+
+    rng = np.random.default_rng(4)
+    positions = np.sort(rng.uniform(0.0, 100.0, 2240))
+    tags = rng.permutation(np.repeat([0, 1], [2240, 64]))
+    y = rng.standard_normal(tags.shape[0])
+    kernel = (for_tag(pt.SquaredExponential(2.0, 1.5), 0) + for_tag(pt.IndependentNoise(0.7), 1)
+              + pt.Constant(0.3) + pt.measurement_only(pt.IndependentNoise(0.1)))
+    model = pt.gp_from_covariance(kernel)
+    out = {}
+    for where, dtype in (("cpu", torch.float64), ("cuda", torch.float32)):
+        def t(v):
+            return torch.as_tensor(v, dtype=dtype, device=where)
+
+        batch = TaggedBatch.create(tags, {0: t(positions), 1: t(np.arange(64.0))})
+        data = pt.RegressionDataset.create(batch, t(y), variance=t(np.full(y.shape[0], 0.01)))
+        _build.reset_launch_counts()
+        fit = model.fit(data)
+        counts = dict(_build.LAUNCHES)
+        pred = fit.predict(t(np.linspace(0.0, 100.0, 300))).marginal()
+        diff = fit.predict(difference_of(t(positions[:50]), t(positions[50:100]))).marginal()
+        out[where] = counts, dict(_build.LAUNCHES), pred, diff
+    counts, total, pred, diff = out["cuda"]
+    _, _, ref, ref_diff = out["cpu"]
+    assert counts == {"radial_gram": 1, "radial_gram_diag": 0, "radial_gram_cols": 0, "panel_cholinv": 3}
+    assert total["radial_gram"] == 1 + 1 + 2  # the fit, the cross gram, the differences' two grams
+    errors = [_max_rel(pred.mean, ref.mean), _max_rel(pred.variance, ref.variance),
+              _max_rel(diff.mean, ref_diff.mean), _max_rel(diff.variance, ref_diff.variance)]
+    print(f"mixed features f32 card vs CPU f64: {errors}")
+    assert max(errors) < 5e-3, errors

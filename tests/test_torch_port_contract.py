@@ -25,11 +25,22 @@ def test_import_leaves_jax_out():
         "names = [m.name for m in pkgutil.walk_packages(albatross_tpu_torch.__path__, 'albatross_tpu_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "assert 'albatross_tpu_torch.models.sparse_gp' in names and len(names) > 40, names\n"
+        "assert 'albatross_tpu_torch.models.ransac' in names and len(names) > 50, names\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'albatross_tpu.'))]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+@pytest.mark.parametrize("package", ["kernels", "stats", "models"])
+def test_every_jax_name_has_a_counterpart(package):
+    """Each name the JAX package's kernels, stats and models packages
+    export exists in the port's package of the same path."""
+    import albatross_tpu
+
+    exported = getattr(albatross_tpu, package).__all__
+    missing = [name for name in exported if not hasattr(getattr(pt, package), name)]
+    assert not missing, missing
 
 
 def test_f32_matmul_precision_is_highest():
