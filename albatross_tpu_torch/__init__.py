@@ -11,14 +11,31 @@ sparse FITC / PITC GP, the null, least-squares, conditional and adapted
 models, RANSAC outlier rejection, the chi-squared and Gaussian
 statistics (``stats``), fast LOO / LOGO cross-validation (``evaluation``,
 ``indexing``),
-the tunable-parameter round trip and the tuners (``tuning``), and the
-blocked Cholesky and block solvers beneath them.  Its hot
+the tunable-parameter round trip and the tuners (``tuning``), the
+ensemble MCMC sampler (``samplers``), checkpoints and parameter JSON
+(``serialize``), host utilities (``utils``: CSV, random draws, graphs,
+Chebyshev bases, profiling), and the blocked Cholesky and block solvers
+beneath them.  Its hot
 spots are hand-written CUDA kernels for Hopper (``csrc/``), built with
 nvcc at first use; CPU tensors take each kernel's plain PyTorch version.
 Importing this package never imports JAX.
 """
 
-from . import config, convert, core, evaluation, indexing, kernels, models, ops, stats, tuning
+from . import (
+    config,
+    convert,
+    core,
+    evaluation,
+    indexing,
+    kernels,
+    models,
+    ops,
+    samplers,
+    serialize,
+    stats,
+    tuning,
+    utils,
+)
 from .core import (
     FixedPrior,
     GaussianPrior,

@@ -33,10 +33,13 @@ NVCC_FLAGS = (
 KERNELS = ("radial_gram", "panel_cholinv")
 
 # kernel wrapper name -> launches since the last reset; the gram kernel
-# counts its three launch forms apart: the cross covariance, the square
-# training covariance, and the lazy-gram loop's column blocks
+# counts its four launch forms apart: the cross covariance, the square
+# training covariance, the lazy-gram loop's column blocks and the
+# walker-batched stack of training covariances; the panel kernel its
+# single and its batched form
 LAUNCHES: dict[str, int] = {"radial_gram": 0, "radial_gram_diag": 0, "radial_gram_cols": 0,
-                            "panel_cholinv": 0}
+                            "radial_gram_diag_batched": 0, "panel_cholinv": 0,
+                            "panel_cholinv_batched": 0}
 # kernel name -> calls of its autograd backward since the last reset
 BACKWARDS: dict[str, int] = {"panel_cholinv": 0}
 

@@ -8,10 +8,11 @@ from .dataset import (
     subset_features,
     transform_dataset,
 )
-from .distributions import JointDistribution, MarginalDistribution, concatenate_marginals
+from .distributions import JointDistribution, MarginalDistribution, concatenate_joints, concatenate_marginals
 from .module import Module
 from .parameters import (
     Parameter,
+    ParameterHandlingMixin,
     ParameterStore,
     TunableParameters,
     ensure_value_within_bounds,
@@ -19,6 +20,10 @@ from .parameters import (
     host_float,
     map_join,
     parameter_prior_log_likelihood,
+    params_are_valid,
+    pretty_param_details,
+    pretty_params,
+    pretty_priors,
     set_tunable_params,
 )
 from .priors import (

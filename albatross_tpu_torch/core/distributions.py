@@ -116,3 +116,9 @@ def concatenate_marginals(dists: Sequence[MarginalDistribution]) -> MarginalDist
     if all(d.variance is None for d in dists):
         return MarginalDistribution(mean, None)
     return MarginalDistribution(mean, torch.cat([d.get_variance() for d in dists]))
+
+
+def concatenate_joints(dists: Sequence[JointDistribution]) -> JointDistribution:
+    """Block-diagonal concatenation of independent joints."""
+    mean = torch.cat([d.mean for d in dists])
+    return JointDistribution(mean, torch.block_diag(*(d.covariance for d in dists)).to(mean.dtype))

@@ -162,6 +162,37 @@ def map_join(*stores: Mapping[str, Parameter]) -> ParameterStore:
     return out
 
 
+def pretty_params(params: ParameterStore) -> str:
+    """Copy-pasteable dump of the values, sorted by name."""
+    lines = ["{"]
+    for name in sorted(params):
+        lines.append(f'    {{"{name}", {host_float(params[name].value):.12e}}},')
+    lines.append("};")
+    return "\n".join(lines) + "\n"
+
+
+def pretty_priors(params: ParameterStore) -> str:
+    lines = ["PRIORS:"]
+    for name in sorted(params):
+        lines.append(f'    "{name}": {params[name].prior.name}')
+    return "\n".join(lines) + "\n"
+
+
+def pretty_param_details(params: ParameterStore) -> str:
+    if not params:
+        return ""
+    width = max(len(n) for n in params) + 1
+    lines = []
+    for name in sorted(params):
+        p = params[name]
+        lines.append(
+            f"    {name:<{width}} value: {host_float(p.value):<12g} "
+            f"valid: {str(p.is_valid()):<5} prior: {p.prior.name:<15} "
+            f"bounds: [{p.prior.lower_bound}, {p.prior.upper_bound}]"
+        )
+    return "\n".join(lines) + "\n"
+
+
 class ParameterHandlingMixin:
     """get/set-param protocol shared by kernels, means and models.
 
@@ -229,3 +260,9 @@ class ParameterHandlingMixin:
 
     def set_tunable_params(self, x, force_bounds: bool = True):
         return self.set_params(set_tunable_params(self.get_params(), x, force_bounds))
+
+    def pretty_params(self) -> str:
+        return pretty_params(self.get_params())
+
+    def pretty_param_details(self) -> str:
+        return pretty_param_details(self.get_params())

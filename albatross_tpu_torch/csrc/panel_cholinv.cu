@@ -68,6 +68,18 @@
 // A non-SPD pivot gives rsqrt(negative) = NaN in U and Wu from the pivot on,
 // which flows out of the panel: it surfaces, it is not masked.  Rows of U,
 // and rows and columns of Wu, before the pivot stay finite.
+//
+// The batched entry (panel_cholinv_batched_f32) factors W contiguous panels,
+// the ensemble sampler's counterpart of jax.vmap over the panel
+// factorization: the same launch sequence, each kernel instantiated with
+// BATCHED = true and its grid widened by the panel index (the tile step on
+// blockIdx.x, the row solve on blockIdx.y, the trailing update on
+// blockIdx.z; the composition already spends blockIdx.z on its pairs, so
+// there z = pair + pairs * panel), one copy of the whole stack, and a b x b
+// scratch a panel.  A single panel's tile step keeps one SM busy while 131
+// wait; W panels keep W busy, so the batch costs far less than W calls.
+// Each slice equals panel_cholinv_f32's output bit for bit, and a non-SPD
+// panel's NaN stays in its slice.
 
 #include <cuda_runtime.h>
 
@@ -264,10 +276,21 @@ __device__ __forceinline__ void compose_diagonal(float* Xm, float* Vm, int tid) 
   __syncthreads();
 }
 
+// Offset of panel `batch` in a stack of contiguous b x b panels: 0 in the
+// single-panel kernels (BATCHED false), which index exactly as before.
+template <bool BATCHED>
+__device__ __forceinline__ size_t panel_offset(unsigned batch, int b) {
+  return BATCHED ? (size_t)batch * b * b : 0;
+}
+
 // Factor the diagonal tile at U[t0:t0+T, t0:t0+T] (leading dimension b) and
-// write U_tt (strict lower zeroed) back, and its inverse to Wu_tt.
+// write U_tt (strict lower zeroed) back, and its inverse to Wu_tt.  BATCHED:
+// panel blockIdx.x of a stack.
+template <bool BATCHED>
 __global__ void __launch_bounds__(TILE_THREADS)
 tile_factor_inverse(float* __restrict__ U, float* __restrict__ Wu, int b, int t0) {
+  U += panel_offset<BATCHED>(blockIdx.x, b);
+  Wu += panel_offset<BATCHED>(blockIdx.x, b);
   extern __shared__ float4 smem4[];
   float* Sm = reinterpret_cast<float*>(smem4);
   float* Xm = Sm + T * LD;
@@ -308,9 +331,13 @@ tile_factor_inverse(float* __restrict__ U, float* __restrict__ Wu, int b, int t0
 // U[t, t+1:] = Wu_tt^T U[t, t+1:] in place, RS_BN columns a block, and
 // U[t+1:, t] = 0 (the mirrored strict lower part of U).  The block holds
 // Wu_tt and all 128 rows of its column slice in shared memory before it
-// writes, so no other block reads what it overwrites.
+// writes, so no other block reads what it overwrites.  BATCHED: panel
+// blockIdx.y of a stack.
+template <bool BATCHED>
 __global__ void __launch_bounds__(RS_THREADS)
 row_solve(float* __restrict__ U, const float* __restrict__ Wu, int b, int t0) {
+  U += panel_offset<BATCHED>(blockIdx.y, b);
+  Wu += panel_offset<BATCHED>(blockIdx.y, b);
   extern __shared__ float4 smem4[];
   float* Ws = reinterpret_cast<float*>(smem4);
   float* Bs = Ws + T * RS_LDW;
@@ -420,10 +447,13 @@ __device__ __forceinline__ void gemm_store(float* C, int ldc, int bm, int bn, co
 }
 
 // U[t+1:, t+1:] -= U[t, t+1:]^T U[t, t+1:] over the upper 64 x 64 blocks;
-// blocks wholly below the diagonal exit at once.
+// blocks wholly below the diagonal exit at once.  BATCHED: panel blockIdx.z
+// of a stack.
+template <bool BATCHED>
 __global__ void __launch_bounds__(GEMM_THREADS) trailing_update(float* U, int b, int t0) {
   const int bm = blockIdx.y * BM, bn = blockIdx.x * BN;
   if (bm >= bn + BN) return;
+  U += panel_offset<BATCHED>(blockIdx.z, b);
   const float* row = U + (size_t)t0 * b + t0 + T;
   float acc[4][4] = {};
   gemm_tile<true>(acc, row, b, row, b, bm, bn, 0, T);
@@ -435,14 +465,22 @@ __global__ void __launch_bounds__(GEMM_THREADS) trailing_update(float* U, int b,
 //   STEP 1: P_z = W11 U[o, o+s]        (W11 upper: k from bm)
 //   STEP 2: Wu[o, o+s] = -P_z W22      (W22 upper: k below bn + BN)
 // and STEP 2 writes Wu[o+s, o] = 0.  P_z is s x s2 with row stride s.
-template <int STEP>
+// BATCHED: blockIdx.z = z + pairs * (panel of the stack), with a b x b
+// scratch a panel.
+template <int STEP, bool BATCHED>
 __global__ void __launch_bounds__(GEMM_THREADS)
 compose_level(const float* __restrict__ U, float* __restrict__ Wu, float* __restrict__ P, int b, int s) {
-  const int o = 2 * s * blockIdx.z;
+  const unsigned pairs = BATCHED ? (b - s + 2 * s - 1) / (2 * s) : 1;
+  const unsigned z = BATCHED ? blockIdx.z % pairs : blockIdx.z;
+  const size_t panel = panel_offset<BATCHED>(blockIdx.z / pairs, b);
+  U += panel;
+  Wu += panel;
+  P += panel;
+  const int o = 2 * s * z;
   const int s2 = b - o - s < s ? b - o - s : s;
   const int bm = blockIdx.y * BM, bn = blockIdx.x * BN;
   if (bn >= s2) return;
-  float* Pz = P + (size_t)blockIdx.z * s * s;
+  float* Pz = P + (size_t)z * s * s;
   float acc[4][4] = {};
   if (STEP == 1) {
     gemm_tile<false>(acc, Wu + (size_t)o * b + o, b, U + (size_t)o * b + o + s, b, bm, bn, bm, s);
@@ -458,40 +496,61 @@ compose_level(const float* __restrict__ U, float* __restrict__ Wu, float* __rest
   }
 }
 
+// The launch sequence over `batch` contiguous panels: one panel with the
+// single-panel kernels (BATCHED false, a grid of exactly the old shape), a
+// stack with each grid widened by the panel index.
+template <bool BATCHED>
+int panel_cholinv_launches(const float* A, float* U, float* Wu, float* scratch, int b, int batch,
+                           cudaStream_t stream) {
+  if (b <= 0 || b % T != 0 || b > 1024 || batch <= 0) return (int)cudaErrorInvalidValue;
+  // grid.y and grid.z are at most 65535: the batch, times the pairs of the
+  // first composition level (at most 4) for compose_level
+  if (BATCHED && 4 * batch > 65535) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(tile_factor_inverse<BATCHED>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TILE_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(row_solve<BATCHED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)RS_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaMemcpyAsync(U, A, (size_t)batch * b * b * sizeof(float), cudaMemcpyDeviceToDevice, stream);
+  if (err != cudaSuccess) return (int)err;
+
+  for (int t0 = 0; t0 < b; t0 += T) {
+    tile_factor_inverse<BATCHED><<<batch, TILE_THREADS, TILE_SMEM, stream>>>(U, Wu, b, t0);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    const int w = b - t0 - T;  // width of the tile row right of the diagonal
+    if (w == 0) break;
+    row_solve<BATCHED><<<dim3(w / RS_BN, batch), RS_THREADS, RS_SMEM, stream>>>(U, Wu, b, t0);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    trailing_update<BATCHED><<<dim3(w / BN, w / BM, batch), GEMM_THREADS, 0, stream>>>(U, b, t0);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  for (int s = T; s < b; s *= 2) {
+    const int pairs = (b - s + 2 * s - 1) / (2 * s);  // pairs with o + s < b
+    const dim3 grid(s / BN, s / BM, pairs * batch);
+    compose_level<1, BATCHED><<<grid, GEMM_THREADS, 0, stream>>>(U, Wu, scratch, b, s);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    compose_level<2, BATCHED><<<grid, GEMM_THREADS, 0, stream>>>(U, Wu, scratch, b, s);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
 
 // A, U, Wu: (b, b) row-major f32; scratch: b * b floats.  All on `stream`.
 int panel_cholinv_f32(const float* A, float* U, float* Wu, float* scratch, int b, void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (b <= 0 || b % T != 0 || b > 1024) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(tile_factor_inverse,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TILE_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(row_solve, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)RS_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaMemcpyAsync(U, A, (size_t)b * b * sizeof(float), cudaMemcpyDeviceToDevice, stream);
-  if (err != cudaSuccess) return (int)err;
+  return panel_cholinv_launches<false>(A, U, Wu, scratch, b, 1, (cudaStream_t)stream_ptr);
+}
 
-  for (int t0 = 0; t0 < b; t0 += T) {
-    tile_factor_inverse<<<1, TILE_THREADS, TILE_SMEM, stream>>>(U, Wu, b, t0);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    const int w = b - t0 - T;  // width of the tile row right of the diagonal
-    if (w == 0) break;
-    row_solve<<<w / RS_BN, RS_THREADS, RS_SMEM, stream>>>(U, Wu, b, t0);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    trailing_update<<<dim3(w / BN, w / BM), GEMM_THREADS, 0, stream>>>(U, b, t0);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-  for (int s = T; s < b; s *= 2) {
-    const dim3 grid(s / BN, s / BM, (b - s + 2 * s - 1) / (2 * s));  // pairs with o + s < b
-    compose_level<1><<<grid, GEMM_THREADS, 0, stream>>>(U, Wu, scratch, b, s);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    compose_level<2><<<grid, GEMM_THREADS, 0, stream>>>(U, Wu, scratch, b, s);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-  return (int)cudaSuccess;
+// A, U, Wu: (batch, b, b) row-major f32, panels contiguous; scratch: batch *
+// b * b floats.  Each panel is factored as panel_cholinv_f32 factors it:
+// the same operations in the same order, so each slice equals that call's
+// output, and a non-SPD panel gives NaN in its own slice only.
+int panel_cholinv_batched_f32(const float* A, float* U, float* Wu, float* scratch, int b, int batch,
+                              void* stream_ptr) {
+  return panel_cholinv_launches<true>(A, U, Wu, scratch, b, batch, (cudaStream_t)stream_ptr);
 }
 
 const char* kernel_error_string(int code) {

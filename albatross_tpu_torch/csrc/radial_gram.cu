@@ -36,6 +36,16 @@
 // bound and beside a fill_ of the same buffer (the card's write floor);
 // PERF.md section 6 keeps the readings.
 //
+// The walker-batched form (radial_gram_diag_batched_*): the ensemble
+// sampler evaluates a batch of models that differ only in their length
+// scale, sigma and diagonal, which the JAX package gets from jax.vmap over
+// the Pallas call (its kernel reads the scalars from params_ref).  Here one
+// launch writes the (W, N, N) stack: blockIdx.x walks the tiles as above,
+// blockIdx.y is the walker, whose scalars and diagonal come from device
+// arrays.  Both kernels run the same tile body (gram_tile), so each slice
+// equals the unbatched kernel's output bit for bit; the bound is the same
+// write, W times.
+//
 // Deliberate difference from the TPU kernel: squared distances are exact
 // elementwise sums (x_k - y_k)^2 at every D.  The TPU kernel uses a centred
 // matrix-unit contraction for D >= 8 and restores exact distances only
@@ -122,11 +132,12 @@ __device__ __forceinline__ void accumulate(T (&acc)[ROWS][COLS], const T (&xv)[R
   }
 }
 
+// One 64 x 128 tile (blockIdx.x) of out = K(X, Y) (+ diag); the body of
+// both kernels below.
 template <typename T, int P, bool STAGED>
-__global__ void __launch_bounds__(THREADS)
-radial_gram_kernel(const T* __restrict__ X, const T* __restrict__ Y, const T* __restrict__ diag,
-                   T* __restrict__ out, int64_t n, int64_t m, int d, int64_t col_tiles, T ls,
-                   T sigma) {
+__device__ __forceinline__ void gram_tile(const T* __restrict__ X, const T* __restrict__ Y,
+                                          const T* __restrict__ diag, T* __restrict__ out, int64_t n,
+                                          int64_t m, int d, int64_t col_tiles, T ls, T sigma) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int64_t row0 = (int64_t)(blockIdx.x / col_tiles) * BM;
@@ -201,6 +212,27 @@ radial_gram_kernel(const T* __restrict__ X, const T* __restrict__ Y, const T* __
   }
 }
 
+template <typename T, int P, bool STAGED>
+__global__ void __launch_bounds__(THREADS)
+radial_gram_kernel(const T* __restrict__ X, const T* __restrict__ Y, const T* __restrict__ diag,
+                   T* __restrict__ out, int64_t n, int64_t m, int d, int64_t col_tiles, T ls,
+                   T sigma) {
+  gram_tile<T, P, STAGED>(X, Y, diag, out, n, m, d, col_tiles, ls, sigma);
+}
+
+// The walker-batched training covariance: slice w = blockIdx.y of out
+// (W, n, n) is K(X, X) with length scale ls[w] and sigma[w], plus diag[w]
+// (W, n) on its diagonal.  The scalars come from device memory, so one
+// launch serves a batch of models without reading anything back.
+template <typename T, int P, bool STAGED>
+__global__ void __launch_bounds__(THREADS)
+radial_gram_diag_batched_kernel(const T* __restrict__ X, const T* __restrict__ ls,
+                                const T* __restrict__ sigma, const T* __restrict__ diag,
+                                T* __restrict__ out, int64_t n, int d, int64_t col_tiles) {
+  const int64_t w = blockIdx.y;
+  gram_tile<T, P, STAGED>(X, X, diag + w * n, out + w * n * n, n, n, d, col_tiles, ls[w], sigma[w]);
+}
+
 template <typename T, int P>
 int launch_profile(const T* X, const T* Y, const T* diag, T* out, int64_t n, int64_t m, int d,
                    T ls, T sigma, cudaStream_t stream) {
@@ -210,6 +242,37 @@ int launch_profile(const T* X, const T* Y, const T* diag, T* out, int64_t n, int
   auto kernel = d > SMALL_D ? &radial_gram_kernel<T, P, true> : &radial_gram_kernel<T, P, false>;
   kernel<<<(unsigned)tiles, THREADS, 0, stream>>>(X, Y, diag, out, n, m, d, col_tiles, ls, sigma);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int P>
+int launch_batched_profile(const T* X, const T* ls, const T* sigma, const T* diag, T* out, int64_t n,
+                           int d, int64_t batch, cudaStream_t stream) {
+  const int64_t col_tiles = (n + BN - 1) / BN;
+  const int64_t tiles = (n + BM - 1) / BM * col_tiles;
+  if (tiles > 0x7fffffff || batch > 65535) return (int)cudaErrorInvalidValue;  // grid.x, grid.y limits
+  auto kernel = d > SMALL_D ? &radial_gram_diag_batched_kernel<T, P, true>
+                            : &radial_gram_diag_batched_kernel<T, P, false>;
+  kernel<<<dim3((unsigned)tiles, (unsigned)batch), THREADS, 0, stream>>>(X, ls, sigma, diag, out, n, d,
+                                                                          col_tiles);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_batched(const T* X, const T* ls, const T* sigma, const T* diag, T* out, int64_t n, int d,
+                   int64_t batch, int profile, cudaStream_t stream) {
+  if (n <= 0 || batch <= 0) return (int)cudaSuccess;
+  switch (profile) {
+    case SQUARED_EXPONENTIAL:
+      return launch_batched_profile<T, SQUARED_EXPONENTIAL>(X, ls, sigma, diag, out, n, d, batch, stream);
+    case EXPONENTIAL:
+      return launch_batched_profile<T, EXPONENTIAL>(X, ls, sigma, diag, out, n, d, batch, stream);
+    case MATERN_32:
+      return launch_batched_profile<T, MATERN_32>(X, ls, sigma, diag, out, n, d, batch, stream);
+    case MATERN_52:
+      return launch_batched_profile<T, MATERN_52>(X, ls, sigma, diag, out, n, d, batch, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
@@ -244,6 +307,19 @@ int radial_gram_f64(const double* X, const double* Y, const double* diag, double
                     int64_t n, int64_t m, int d, double ls, double sigma, int profile,
                     void* stream) {
   return launch<double>(X, Y, diag, out, n, m, d, ls, sigma, profile, (cudaStream_t)stream);
+}
+
+// X (n, d); ls, sigma (batch,); diag (batch, n); out (batch, n, n); all
+// on the device, contiguous.
+int radial_gram_diag_batched_f32(const float* X, const float* ls, const float* sigma, const float* diag,
+                                 float* out, int64_t n, int d, int64_t batch, int profile, void* stream) {
+  return launch_batched<float>(X, ls, sigma, diag, out, n, d, batch, profile, (cudaStream_t)stream);
+}
+
+int radial_gram_diag_batched_f64(const double* X, const double* ls, const double* sigma,
+                                 const double* diag, double* out, int64_t n, int d, int64_t batch,
+                                 int profile, void* stream) {
+  return launch_batched<double>(X, ls, sigma, diag, out, n, d, batch, profile, (cudaStream_t)stream);
 }
 
 const char* kernel_error_string(int code) {

@@ -24,8 +24,13 @@ from .metrics import (
     RootMeanSquareError,
     StandardDeviation,
     crps_normal,
+    energy_score,
+    expected_abs_normal_1,
+    expected_abs_normal_2,
     negative_log_likelihood_joint,
     negative_log_likelihood_marginal,
+    variogram_score,
+    wasserstein_2,
 )
 from .model_metrics import (
     GaussianProcessNegativeLogLikelihood,

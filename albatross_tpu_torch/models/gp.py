@@ -20,7 +20,11 @@ Counterpart of ``albatross_tpu.models.gp`` (main path):
   (ops/block.py BlockSymmetric), without refactorizing the old block;
 * fit_from_prediction: a fit whose predictions at the given features
   reproduce a joint prediction (ExplainedCovariance);
-* cross_validated_predictions: fast LOO / LOGO from one fit.
+* cross_validated_predictions: fast LOO / LOGO from one fit;
+* batched_log_likelihood: ``log_likelihood`` of a batch of models that
+  differ only in their parameters (the ensemble sampler's walkers), from
+  one walker-batched gram launch or a stack of their DSL covariances, and
+  one batched factorization.
 """
 
 from __future__ import annotations
@@ -38,9 +42,15 @@ from ..core.parameters import host_float, map_join
 from ..kernels.base import CovarianceFunction
 from ..kernels.features import Measurement, as_measurement
 from ..kernels.means import MeanFunction, ZeroMean
+from ..ops.batched_nlml import batched_nlml_terms, walkers_per_batch
 from ..ops.block import build_block_symmetric
 from ..ops.linalg import CholeskyFactor, ExplainedCovariance
-from ..ops.radial_gram import fused_training_covariance, match_fused_training_cov, radial_gram_cols
+from ..ops.radial_gram import (
+    fused_training_covariance,
+    fused_training_covariance_batched,
+    match_fused_training_cov,
+    radial_gram_cols,
+)
 from .base import FitModel, ModelBase
 
 LOG_2PI = math.log(2.0 * math.pi)
@@ -302,6 +312,75 @@ class GaussianProcess(ModelBase):
                 cov, zero_mean, jitter=0.0 if fused else self.jitter, assume_symmetric=True
             ))
         return ll + self.prior_log_likelihood().to(device=ll.device, dtype=ll.dtype)
+
+    @staticmethod
+    def _batched_training_covariance(models, measurements) -> tuple[torch.Tensor, float]:
+        """((W, n, n) stack of the models' training covariances, the jitter
+        still to add).  Models of the fused pattern over one tensor of
+        features: one batched gram launch writes the stack
+        (ops/radial_gram.py fused_training_covariance_batched); any other
+        kernel: each model's DSL covariance, written into its slice as it
+        is built."""
+        if isinstance(measurements, Measurement):
+            K = fused_training_covariance_batched([m.covariance_function for m in models],
+                                                  measurements.value, [m.jitter for m in models])
+            if K is not None:
+                return K, 0.0
+        jitters = {m.jitter for m in models}
+        if len(jitters) != 1:
+            raise ValueError(f"batched_log_likelihood: the models' jitters differ ({sorted(jitters)})")
+        K = None
+        for w, m in enumerate(models):
+            cov = m._training_covariance(measurements, None)[0]
+            if K is None:
+                K = cov.new_empty((len(models), *cov.shape))
+            K[w] = cov
+        return K, jitters.pop()
+
+    @staticmethod
+    def batched_log_likelihood(models, dataset: RegressionDataset) -> torch.Tensor:
+        """``[m.log_likelihood(dataset) for m in models]`` as batches, for
+        GaussianProcess models that differ only in their parameters: a
+        (W, n, n) stack of training covariances and one batched
+        factorization (``ops/batched_nlml.py``) a batch, forward only; each
+        model's prior log-likelihood is added on the host in f64.  Returns a
+        (W,) f64 CPU tensor; a model whose covariance does not factor gets a
+        non-finite value.
+
+        On the card a batch holds as many walkers as its free memory takes
+        (``walkers_per_batch``), so a large ensemble runs in several batches
+        of the same arithmetic, and a covariance too large for the card
+        raises.  At ``config.CHOLESKY_FUSED_MIN_N`` points and above, where
+        ``log_likelihood`` takes the lazy-gram loop because one N x N
+        covariance is already large on the card, this raises too.  Below
+        it, ``CHOLESKY_ALGORITHM = "right_fused"`` gives the same arithmetic
+        as the materialized factorization used here.  ``safe_factorization``
+        models are refused: their jitter search is one matrix at a time."""
+        if any(m.safe_factorization for m in models):
+            raise ValueError("batched_log_likelihood: safe_factorization models factor one at a time; "
+                             "call log_likelihood on each")
+        measurements = as_measurement(dataset.features)
+        zero_mean = torch.stack([m.mean_function.remove_from(measurements, dataset.targets.mean)
+                                 for m in models])
+        w, n = zero_mean.shape
+        if config.CHOLESKY_FUSED_MIN_N and n >= config.CHOLESKY_FUSED_MIN_N:
+            raise ValueError(
+                f"batched_log_likelihood: n = {n} is at or above config.CHOLESKY_FUSED_MIN_N = "
+                f"{config.CHOLESKY_FUSED_MIN_N}, where log_likelihood takes the lazy-gram loop to save "
+                f"the card's memory; a stack of {w} covariances of that size would not fit"
+            )
+        x = measurements.value if isinstance(measurements, Measurement) else None
+        itemsize = max(zero_mean.element_size(), x.element_size() if isinstance(x, torch.Tensor) else 0)
+        per_batch = walkers_per_batch(w, n, itemsize, zero_mean.device)
+        lls = []
+        for s in range(0, w, per_batch):
+            part = models[s:s + per_batch]
+            K, jitter = GaussianProcess._batched_training_covariance(part, measurements)
+            log_det, white = batched_nlml_terms(K, zero_mean[s:s + per_batch], jitter)
+            del K
+            lls.append(-0.5 * (log_det + torch.sum(white * white, dim=-1) + n * LOG_2PI))
+        ll = torch.cat(lls).to(device="cpu", dtype=torch.float64)  # the one read back
+        return ll + torch.stack([m.prior_log_likelihood().to(torch.float64) for m in models])
 
     def cross_validated_predictions(self, dataset: RegressionDataset, indexers, predict_type):
         """Fast LOO / LOGO: fit once, then each group's held-out prediction

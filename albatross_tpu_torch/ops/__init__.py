@@ -27,6 +27,7 @@ from .nlml import blocked_lauum, spd_inverse_from_factor, tri_inverse_full
 from .panel_cholinv import panel_cholinv, plain_panel_cholinv
 from .radial_gram import (
     fused_training_covariance,
+    fused_training_covariance_batched,
     match_fused_training_cov,
     plain_radial_gram,
     radial_gram,

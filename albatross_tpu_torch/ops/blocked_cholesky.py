@@ -31,6 +31,11 @@ no (n, n) matrix exists at any point.
 Gradients: autograd differentiates the loop; each diagonal panel's factor
 and inverse come from one ``torch.autograd.Function`` with a closed-form
 backward (ops/panel_cholinv.py), on every device.
+
+``_cols_core`` and ``padded_column_panels`` also take panels with a
+leading batch dimension, forward only: ops/batched_nlml.py factors the
+ensemble sampler's (W, n, n) stacks through them, a (W, b, b) stack of
+diagonal panels a step.
 """
 
 from __future__ import annotations
@@ -86,25 +91,27 @@ def _tri_solve_identity(L: torch.Tensor) -> torch.Tensor:
 
 
 def blocked_tri_inverse(L: torch.Tensor, sub: int = DEFAULT_PANEL_SUB) -> torch.Tensor:
-    """Inverse of a lower-triangular matrix, GEMM-rich: the diagonal
-    sub-blocks are inverted by one batched triangular solve, then row block
-    r of W is W[r, :r] = -W_rr @ (L[r, :r] @ W[:r, :r]).
+    """Inverse of a lower-triangular matrix (or of each of a stack of
+    them, over leading dimensions), GEMM-rich: the diagonal sub-blocks are
+    inverted by one batched triangular solve, then row block r of W is
+    W[r, :r] = -W_rr @ (L[r, :r] @ W[:r, :r]).
 
     W grows by whole row blocks (the JAX package's ``_compose_inverse_rows``)
     and is never written in place, so autograd can differentiate it: each
     product keeps the rows it read."""
-    m = L.shape[0]
+    m = L.shape[-1]
     if m <= sub or m % sub != 0:
         return _tri_solve_identity(L)
     S = m // sub
-    diag = torch.stack([L[i * sub:(i + 1) * sub, i * sub:(i + 1) * sub] for i in range(S)])
+    diag = torch.stack([L[..., i * sub:(i + 1) * sub, i * sub:(i + 1) * sub] for i in range(S)], dim=-3)
     winv = _tri_solve_identity(diag)
-    W = winv[0]  # the (r0, r0) leading block built so far
+    W = winv[..., 0, :, :]  # the (r0, r0) leading block built so far
     for r in range(1, S):
         r0 = r * sub
-        left = -(winv[r] @ (L[r0:r0 + sub, :r0] @ W))
-        W = torch.cat([torch.cat([W, W.new_zeros((r0, sub))], dim=1),
-                       torch.cat([left, winv[r]], dim=1)], dim=0)
+        wr = winv[..., r, :, :]
+        left = -(wr @ (L[..., r0:r0 + sub, :r0] @ W))
+        W = torch.cat([torch.cat([W, W.new_zeros((*W.shape[:-2], r0, sub))], dim=-1),
+                       torch.cat([left, wr], dim=-1)], dim=-2)
     return W
 
 
@@ -113,11 +120,18 @@ def _panel_chol_inverse(Akk: torch.Tensor, sub: int = DEFAULT_PANEL_SUB):
     (ops/panel_cholinv.py): its forward is the CUDA panel kernel for CUDA
     f32 tensors, torch.linalg.cholesky + blocked_tri_inverse (the JAX
     package's default panel path) for f64 CUDA tensors and for CPU tensors;
-    its backward is the closed form on every device."""
-    from .panel_cholinv import panel_cholinv_function
+    its backward is the closed form on every device.  A (W, b, b) stack of
+    panels (forward only) goes through the batched kernel for CUDA f32 and
+    the plain version otherwise."""
+    from .panel_cholinv import panel_cholinv_batched, panel_cholinv_function, plain_panel_cholinv
 
-    U, Wu = panel_cholinv_function(Akk, sub)
-    return U.T, Wu.T
+    if Akk.ndim == 2:
+        U, Wu = panel_cholinv_function(Akk, sub)
+    elif Akk.is_cuda and Akk.dtype == torch.float32:
+        U, Wu = panel_cholinv_batched(Akk.contiguous())
+    else:
+        U, Wu = plain_panel_cholinv(Akk, sub)
+    return U.mT, Wu.mT
 
 
 def blocked_cholesky(K: torch.Tensor, block_size: int | None = None, rhs=None):
@@ -209,20 +223,10 @@ def blocked_cholesky_cols_fused(
         K = col_fn(0, n)
         return blocked_cholesky_cols(K, block_size=b, rhs=None if rhs is None else rhs.to(K.dtype),
                                      panel_sub=panel_sub, assemble=assemble)
-    m = -(-n // b) * b
-    cols = []
-    for k0 in range(0, m, b):
-        bk = min(b, n - k0)
-        col = col_fn(k0, bk)  # (n - k0, bk)
-        if bk < b:  # the last panel: [[K_kk, 0], [0, I]]
-            col = torch.block_diag(col, torch.eye(b - bk, dtype=col.dtype, device=col.device))
-        elif m > n:  # zero rows n..m
-            col = torch.nn.functional.pad(col, (0, 0, 0, m - n))
-        cols.append(col)
+    cols = padded_column_panels(col_fn, n, b)
+    m = len(cols) * b
     if rhs is not None:
-        rhs = rhs.to(cols[0].dtype)
-        if m > n:
-            rhs = torch.cat([rhs, rhs.new_zeros(m - n)])
+        rhs = torch.nn.functional.pad(rhs.to(cols[0].dtype), (0, m - n))
     out = _cols_core(cols, m, b, rhs, panel_sub=panel_sub, assemble=assemble)
     if m == n:
         return out
@@ -233,6 +237,26 @@ def blocked_cholesky_cols_fused(
         return out[:n, :n]
     L, z = out
     return L[:n, :n], z[:n]
+
+
+def padded_column_panels(col_fn, n: int, b: int) -> list:
+    """Column panels [k0, k0 + b) of an n x n SPD matrix padded to m = n
+    rounded up to b, from ``col_fn(k0, bk)``, the rows k0..n of columns
+    [k0, k0 + bk) (leading batch dimensions allowed): zero rows n..m below
+    each panel, and an identity block on the last panel's padded diagonal,
+    so [[K, 0], [0, I]] factors as [[L, 0], [0, I]].  With m > n every
+    panel is a fresh tensor; with m == n the panels are col_fn's own."""
+    m = -(-n // b) * b
+    cols = []
+    for k0 in range(0, m, b):
+        bk = min(b, n - k0)
+        col = col_fn(k0, bk)  # (..., n - k0, bk)
+        if m > n:
+            col = torch.nn.functional.pad(col, (0, b - bk, 0, m - n))
+            if bk < b:  # the last panel: [[K_kk, 0], [0, I]]
+                col[..., bk:, bk:] = torch.eye(b - bk, dtype=col.dtype, device=col.device)
+        cols.append(col)
+    return cols
 
 
 class _ColumnPanels(torch.autograd.Function):
@@ -270,9 +294,7 @@ class _TrailingUpdate(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, B, *cols):
-        b = B.shape[1]
-        for i, C in enumerate(cols):
-            C.addmm_(B[i * b:], B[i * b:(i + 1) * b].T, alpha=-1.0)  # C -= A B^T in the GEMM
+        _trailing_update(B, cols)
         ctx.mark_dirty(*cols)
         ctx.save_for_backward(B)
         return cols
@@ -290,6 +312,24 @@ class _TrailingUpdate(torch.autograd.Function):
         return (gB, *grads)
 
 
+def _trailing_update(B, cols) -> None:
+    """cols[i] -= B[i b:] B[i b:(i + 1) b]^T in place, inside the GEMM;
+    over leading batch dimensions too (``baddbmm_``)."""
+    b = B.shape[-1]
+    for i, C in enumerate(cols):
+        lhs, rhs = B[..., i * b:, :], B[..., i * b:(i + 1) * b, :].mT
+        if B.ndim == 2:
+            C.addmm_(lhs, rhs, alpha=-1.0)
+        else:
+            C.baddbmm_(lhs, rhs, alpha=-1.0)
+
+
+def _matvec(M, v):
+    """M @ v over leading batch dimensions; a plain matrix-vector product
+    for one matrix."""
+    return M @ v if v.ndim == 1 else (M @ v[..., None])[..., 0]
+
+
 def _cols_core(cols, n: int, b: int, rhs, *, panel_sub: int, assemble: bool):
     """The right-looking loop over active-row column panels.
 
@@ -304,24 +344,27 @@ def _cols_core(cols, n: int, b: int, rhs, *, panel_sub: int, assemble: bool):
     tail = rhs  # rows k0.. of the partly whitened right-hand side
     white, diags = [], []
     for k in range(G):
-        col = cols[k]  # (n - k0, b)
-        Lkk, W = _panel_chol_inverse(col[:b], panel_sub)
-        below = col[b:] @ W.T  # (n - k0 - b, b)
+        col = cols[k]  # (..., n - k0, b)
+        Lkk, W = _panel_chol_inverse(col[..., :b, :], panel_sub)
+        below = col[..., b:, :] @ W.mT  # (..., n - k0 - b, b)
         if assemble:
-            cols[k] = torch.cat([Lkk, below], dim=0)
+            cols[k] = torch.cat([Lkk, below], dim=-2)
         else:
             cols[k] = col = None
-            diags.append(torch.diagonal(Lkk))
+            diags.append(torch.diagonal(Lkk, dim1=-2, dim2=-1))
         if tail is not None:
-            zk = W @ tail[:b]
+            zk = _matvec(W, tail[..., :b])
             white.append(zk)
-            tail = tail[b:] - below @ zk
+            tail = tail[..., b:] - _matvec(below, zk)
         if k + 1 < G:
-            cols[k + 1:] = _TrailingUpdate.apply(below, *cols[k + 1:])
-    z = None if rhs is None else torch.cat(white)
+            if below.requires_grad:
+                cols[k + 1:] = _TrailingUpdate.apply(below, *cols[k + 1:])
+            else:
+                _trailing_update(below, cols[k + 1:])
+    z = None if rhs is None else torch.cat(white, dim=-1)
     if not assemble:
-        return torch.cat(diags), z
-    L = torch.zeros((n, n), dtype=cols[0].dtype, device=cols[0].device)
+        return torch.cat(diags, dim=-1), z
+    L = cols[0].new_zeros((*cols[0].shape[:-2], n, n))
     for k in range(G):
-        L[k * b:, k * b:(k + 1) * b] = cols[k]
+        L[..., k * b:, k * b:(k + 1) * b] = cols[k]
     return L if rhs is None else (L, z)

@@ -23,6 +23,12 @@ where Phi keeps the lower triangle with its diagonal halved and sym(X) =
 (X + X^T) / 2, the symmetric gradient ``torch.linalg.cholesky`` and
 ``jnp.linalg.cholesky`` give.  ``_build.BACKWARDS["panel_cholinv"]`` counts
 its calls.
+
+``panel_cholinv_batched`` factors a (W, b, b) stack of panels from one C
+entry (``panel_cholinv_batched_f32``: each launch's grid widened by the
+panel index), the ensemble sampler's counterpart of ``jax.vmap`` over the
+panel factorization; its plain version is ``plain_panel_cholinv`` on the
+stack.  It is forward only.
 """
 
 from __future__ import annotations
@@ -37,12 +43,13 @@ _T = 128
 
 
 def plain_panel_cholinv(A: torch.Tensor, sub: int = 256):
-    """(U, Wu) = (L^T, (L^-1)^T) from torch.linalg.cholesky and
-    blocked_tri_inverse; a non-SPD panel gives NaN, as the kernel does."""
+    """(U, Wu) = (L^T, (L^-1)^T) of one panel or of each of a (W, b, b)
+    stack, from torch.linalg.cholesky and blocked_tri_inverse; a non-SPD
+    panel gives NaN, as the kernel does, in its own slice only."""
     from .blocked_cholesky import blocked_tri_inverse, cholesky
 
     L = cholesky(A)
-    return L.T, blocked_tri_inverse(L, sub).T
+    return L.mT, blocked_tri_inverse(L, sub).mT
 
 
 def _launch(A: torch.Tensor):
@@ -58,6 +65,22 @@ def _launch(A: torch.Tensor):
     code = fn(A.data_ptr(), U.data_ptr(), Wu.data_ptr(), scratch.data_ptr(), b, stream)
     _build.count_launch("panel_cholinv")
     _build.check(lib, code, "panel_cholinv kernel")
+    return U, Wu
+
+
+def _launch_batched(A: torch.Tensor):
+    lib = _build.load("panel_cholinv")
+    w, b, _ = A.shape
+    U = torch.empty_like(A)
+    Wu = torch.empty_like(A)
+    scratch = torch.empty(w * b * b, dtype=A.dtype, device=A.device)
+    fn = lib.panel_cholinv_batched_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    code = fn(A.data_ptr(), U.data_ptr(), Wu.data_ptr(), scratch.data_ptr(), b, w, stream)
+    _build.count_launch("panel_cholinv_batched")
+    _build.check(lib, code, "panel_cholinv_batched kernel")
     return U, Wu
 
 
@@ -132,3 +155,23 @@ def panel_cholinv(A: torch.Tensor):
     if A.is_cuda:
         _check_cuda_panel(A)
     return _PanelCholInv.apply(A, 256)
+
+
+def panel_cholinv_batched(A: torch.Tensor):
+    """(U, Wu) of each panel of a (W, b, b) stack, with U^T U = A[w] and
+    Wu = U^-1, for panels the kernel takes (b % 128 == 0, b <= 1024; f32 on
+    CUDA).  CUDA tensors: one call of the batched kernel, counted as
+    ``panel_cholinv_batched``, or an error; CPU tensors: the plain version.
+    Forward only: a CUDA input that requires grad raises."""
+    if A.ndim != 3 or A.shape[1] != A.shape[2]:
+        raise ValueError(f"panel_cholinv_batched needs a (W, b, b) stack, got {tuple(A.shape)}")
+    _check_kernel_shape(A.shape[1])
+    if not A.is_cuda:
+        return plain_panel_cholinv(A)
+    if A.dtype != torch.float32:
+        raise TypeError(f"panel_cholinv_batched kernel takes f32, got {A.dtype}")
+    if not A.is_contiguous():
+        raise ValueError("panel_cholinv_batched kernel needs a contiguous stack")
+    if torch.is_grad_enabled() and A.requires_grad:
+        raise RuntimeError("panel_cholinv_batched is forward only: the input requires grad")
+    return _launch_batched(A)

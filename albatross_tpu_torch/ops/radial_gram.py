@@ -11,7 +11,11 @@ the global diagonal in the same pass (the JAX package's
 columns [j0, j0 + b) of the training covariance, a rectangular block whose
 leading b x b block carries the diagonal (the JAX package's
 ``_make_gram_col_fn`` over its closed form); the same kernel, counted
-apart.
+apart.  ``radial_gram_diag_batched`` is the ensemble sampler's form: a
+(W, N, N) stack of training covariances, one for each walker's length
+scale, sigma and diagonal, read from device tensors, from one launch (the
+counterpart of ``jax.vmap`` over the JAX package's ``pallas_call``, whose
+kernel reads its scalars from ``params_ref``).  It is forward only.
 
 Gradients: when an input requires grad, the CUDA forward is wrapped in a
 ``torch.autograd.Function`` whose backward differentiates the plain closed
@@ -60,29 +64,41 @@ def apply_profile(profile: str, d2, length_scale, sigma):
     raise ValueError(f"unknown profile {profile}")
 
 
-def plain_radial_gram(X, Y, length_scale, sigma, profile: str, diag_add=None):
-    """Closed-form gram (+ diagonal): the kernel's plain version.
-
-    Squared distances are exact elementwise sums at every D, as in the
-    kernel (the JAX package's closed form switches to the cancelling
+def _plain_d2(X, Y):
+    """(N, M) squared distances as exact elementwise sums at every D, as in
+    the kernel (the JAX package's closed form switches to the cancelling
     |x|^2 + |y|^2 - 2 x.y form above D = 8, which its Pallas kernel then
     refines back to exact inside the profile's support).  Rows go in chunks
     so the (rows, M, D) difference tensor stays bounded."""
-    X, Y = as_matrix(X), as_matrix(Y)
     d = X.shape[-1]
     if d == 1:
         diff = X - Y.T
-        d2 = diff * diff
-    else:
-        rows = max(1, _PLAIN_CHUNK_ELEMENTS // max(1, Y.shape[0] * d))
-        parts = []
-        for i0 in range(0, X.shape[0], rows):
-            diff = X[i0:i0 + rows, None, :] - Y[None, :, :]
-            parts.append(torch.sum(diff * diff, dim=-1))
-        d2 = torch.cat(parts) if len(parts) > 1 else parts[0]
-    out = apply_profile(profile, d2, length_scale, sigma)
+        return diff * diff
+    rows = max(1, _PLAIN_CHUNK_ELEMENTS // max(1, Y.shape[0] * d))
+    parts = []
+    for i0 in range(0, X.shape[0], rows):
+        diff = X[i0:i0 + rows, None, :] - Y[None, :, :]
+        parts.append(torch.sum(diff * diff, dim=-1))
+    return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+
+def plain_radial_gram(X, Y, length_scale, sigma, profile: str, diag_add=None):
+    """Closed-form gram (+ diagonal): the kernel's plain version."""
+    X, Y = as_matrix(X), as_matrix(Y)
+    out = apply_profile(profile, _plain_d2(X, Y), length_scale, sigma)
     if diag_add is not None:
         out.diagonal().add_(diag_add.to(out.dtype))  # in place: no N x N temporary
+    return out
+
+
+def plain_radial_gram_diag_batched(x, length_scales, sigmas, diag, profile: str):
+    """The batched kernel's plain version: slice w of the (W, N, N) result
+    is ``plain_radial_gram(x, x, length_scales[w], sigmas[w], profile,
+    diag[w])``, from one (N, N) table of squared distances."""
+    X = as_matrix(x)
+    out = apply_profile(profile, _plain_d2(X, X)[None], length_scales[:, None, None],
+                        sigmas[:, None, None])
+    out.diagonal(dim1=-2, dim2=-1).add_(diag.to(out.dtype))
     return out
 
 
@@ -189,6 +205,55 @@ def radial_gram(X, Y, length_scale, sigma, profile: str = "squared_exponential",
     return _gram(X, Y, length_scale, sigma, profile, diag_add, counter)
 
 
+def _launch_diag_batched(X, length_scales, sigmas, diag, profile: str):
+    lib = _build.load("radial_gram")
+    n, d = X.shape
+    w = length_scales.shape[0]
+    out = torch.empty((w, n, n), dtype=X.dtype, device=X.device)
+    fn = lib.radial_gram_diag_batched_f32 if X.dtype == torch.float32 else lib.radial_gram_diag_batched_f64
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+                                           ctypes.c_void_p]
+    stream = torch.cuda.current_stream(X.device).cuda_stream
+    code = fn(X.data_ptr(), length_scales.data_ptr(), sigmas.data_ptr(), diag.data_ptr(), out.data_ptr(),
+              n, d, w, _PROFILE_ID[profile], stream)
+    _build.count_launch("radial_gram_diag_batched")
+    _build.check(lib, code, "radial_gram_diag_batched kernel")
+    return out
+
+
+def radial_gram_diag_batched(x, length_scales, sigmas, diag, profile: str = "squared_exponential"):
+    """(W, N, N) stack of training covariances over one (N,) or (N, D)
+    input x: slice w is sigmas[w]^2 * profile(||x_i - x_j|| / length_scales[w])
+    plus ``diag[w]`` on its diagonal.  ``length_scales`` and ``sigmas`` are
+    (W,) tensors and ``diag`` a (W, N) tensor on x's device, so a batch of
+    models' scalars reaches the card in one transfer and nothing is read
+    back.  Each slice equals the unbatched ``radial_gram(x, x, ...,
+    diag_add=diag[w])``: the same tile code, in the same order.
+
+    CPU tensors: the closed form.  CUDA tensors: one launch of the kernel,
+    counted as ``radial_gram_diag_batched``, or an error; forward only, so
+    an input that requires grad raises there."""
+    if profile not in _PROFILE_ID:
+        raise ValueError(f"unknown profile {profile}")
+    X = as_matrix(x)
+    if not X.is_cuda:
+        return plain_radial_gram_diag_batched(X, length_scales, sigmas, diag, profile)
+    if X.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"radial_gram_diag_batched kernel takes f32 or f64, got {X.dtype}")
+    w = length_scales.shape[0] if length_scales.ndim == 1 else -1
+    for name, t, shape in (("length_scales", length_scales, (w,)), ("sigmas", sigmas, (w,)),
+                           ("diag", diag, (w, X.shape[0]))):
+        if t.shape != shape or t.dtype != X.dtype or t.device != X.device or not t.is_contiguous():
+            raise ValueError(f"radial_gram_diag_batched: {name} must be a contiguous {shape} tensor of x's "
+                             f"dtype and device, got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if not X.is_contiguous():
+        raise ValueError("radial_gram_diag_batched kernel needs a contiguous x")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (X, length_scales, sigmas, diag)):
+        raise RuntimeError("radial_gram_diag_batched is forward only: an input requires grad")
+    return _launch_diag_batched(X, length_scales, sigmas, diag, profile)
+
+
 def radial_gram_cols(x, j0: int, b: int, length_scale, sigma, profile: str, diag_add,
                      host_scalars=None):
     """Rows j0..N of columns [j0, j0 + b) of the training covariance
@@ -256,11 +321,19 @@ def match_fused_training_cov(kernel, for_measurements: bool = True):
     return radial, ls, sigma, diag_scalar
 
 
+def _match_fused(kernel, X):
+    """match_fused_training_cov(kernel) when X is one feature tensor the
+    gram kernel takes, else None."""
+    if not isinstance(X, torch.Tensor) or X.ndim > 2:
+        return None
+    return match_fused_training_cov(kernel, for_measurements=True)
+
+
 def fused_training_covariance(kernel, X, target_variance=None, jitter: float = 0.0):
     """K + noise*I + diag(target_variance) + jitter*I in one gram pass, or
     None when the kernel or batch does not qualify."""
-    matched = match_fused_training_cov(kernel, for_measurements=True)
-    if matched is None or not isinstance(X, torch.Tensor) or X.ndim > 2:
+    matched = _match_fused(kernel, X)
+    if matched is None:
         return None
     radial, ls, sigma, diag_scalar = matched
     diag = torch.zeros((X.shape[0],), dtype=X.dtype, device=X.device) + diag_scalar
@@ -270,3 +343,25 @@ def fused_training_covariance(kernel, X, target_variance=None, jitter: float = 0
     if host_float(ls) <= 0.0:
         return torch.diag(diag)  # the closed forms' length_scale > 0 guard
     return radial_gram(X, X, ls, sigma, radial._profile_name, diag_add=diag)
+
+
+def fused_training_covariance_batched(kernels, X, jitters):
+    """The (W, N, N) stack of ``fused_training_covariance(kernels[w], X,
+    jitter=jitters[w])``, from one launch of the batched gram kernel: the
+    kernels' length scales, sigmas and noise go to X's device in one
+    transfer, and each diagonal is noise + jitter in X's dtype.  None when
+    a kernel does not qualify; the kernels' radial profiles must agree."""
+    matched = [_match_fused(k, X) for k in kernels]
+    if any(t is None for t in matched):
+        return None
+    profile = matched[0][0]._profile_name
+    if any(t[0]._profile_name != profile for t in matched):
+        raise ValueError("fused_training_covariance_batched: the kernels' radial profiles differ")
+    host = torch.tensor([[host_float(ls), host_float(sigma), host_float(noise), jitter]
+                         for (_, ls, sigma, noise), jitter in zip(matched, jitters)], dtype=torch.float64)
+    ls, sigma, noise, jitter = host.T.to(device=X.device, dtype=X.dtype)  # (4, W) in one transfer
+    diag = (noise + jitter)[:, None].expand(len(kernels), X.shape[0]).contiguous()
+    K = radial_gram_diag_batched(X, ls.contiguous(), sigma.contiguous(), diag, profile)
+    for w in torch.nonzero(host[:, 0] <= 0.0)[:, 0].tolist():
+        K[w] = torch.diag(diag[w])  # the length_scale > 0 guard, as above
+    return K

@@ -48,14 +48,24 @@ fast LOO, RANSAC over 1% injected outliers; angular and radial metrics
 over 4-column station rows) and a mixed-feature model over a TaggedBatch
 of 8128 positions and 64 bias ids (fit, log_likelihood, predictions at
 positions and at differences of positions), each held against f64 on the
-card with a TF32 control and its launches counted.  Any failed check
-raises.  Each kernel's time is printed
+card with a TF32 control and its launches counted.  The sampler phase
+holds the two walker-batched kernel forms (a (16, 8192, 8192) stack of
+training covariances from one gram launch, 16 panels of 1024 from one
+panel call) against their plain versions and, slice by slice, against
+the unbatched kernels, then runs the ensemble sampler through
+``ensemble_sampler_from_model`` at N = 8192 with 32 walkers (its batched
+f32 log-probs against the per-walker f64 log_likelihood on the card, with
+a TF32 control, and against the per-walker f32 route; walker-steps/s,
+peak memory, launch counts), bench.py's sampler row (N = 1024, 32
+walkers, 64 iterations) and 32 walkers' batched log-probs at N = 28672,
+more than the card holds as one stack, which run in batches that fit.  Any failed check raises.  Each kernel's time is printed
 beside its bound (the least time the card could take for the same work);
 the gram kernels also beside the card's write floor, a ``fill_`` of a
 buffer of the gram's shape.
 ``--profile`` adds a torch.profiler breakdown of one NLML's device time and
 of one value+grad evaluation's, forward and backward apart, of one
-lazy NLML at N = 57344, and of one FITC fit.
+lazy NLML at N = 57344, of one FITC fit, and of one sampler half-step's
+batched evaluation.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -118,6 +128,13 @@ FFP_SPACING = 0.25  # fit_from_prediction at N_TEST points LENGTH_SCALE / 2 apar
 N_TEMP, TEMP_GRID, TEMP_OUTLIERS, TEMP_ITERATIONS = 8192, 64, 82, 64
 N_POS, N_BIAS, N_PAIRS = 8128, 64, 2048
 PHASE_REPS = 3
+# the sampler phase: the batched kernel forms checked at W_KERNEL walkers,
+# N_SAMPLER points and panels of B_SAMPLER; the chain at N_SAMPLER (bench
+# data, seed SEED + 2, the fused route) with W_SAMPLER walkers, 16 a half;
+# bench.py's row (bench.py:231-263) at N_SAMPLER_BENCH
+N_SAMPLER, W_KERNEL, B_SAMPLER = 8192, 16, 1024
+W_SAMPLER, SAMPLER_ITERATIONS = 32, 16
+N_SAMPLER_BENCH, SAMPLER_BENCH_ITERATIONS = 1024, 64
 # NVIDIA's data sheet for the H100 SXM: device memory rate, and the FP32
 # rate outside the tensor cores (the panel kernel and the grams use no
 # tensor cores).
@@ -195,11 +212,28 @@ TEMP_TOLS = {"nlml": 3.7e-2, "mean": 5.8e-2, "variance": 0.48, "loo mean": 7.7e-
              "ransac metrics": 0.17}
 MIXED_TOLS = {"nlml": 6.7e-5, "mean": 1.3e-3, "variance": 5.7e-5, "difference mean": 7.5e-4,
               "difference variance": 3.7e-5}
+# The sampler at N_SAMPLER: the initial walkers' batched f32 log-probs, the
+# largest error over the walkers over the largest |f64| log-prob (a
+# walker's own relative error is unbounded where its log-likelihood nears
+# 0), against the per-walker f64 log_likelihood on the card and against the
+# per-walker f32 route (the same panels, unbatched GEMMs): about 10x the
+# first reading on H100 (8.15e-7 and 1.77e-7), so the TF32 control (2.5e-5
+# against both) fails them.
+SAMPLER_TOLS = {"f64": 8.2e-6, "per-walker f32": 1.8e-6}
+# W_SAMPLER walkers at the main path's N hold more than the card's memory
+# as one stack (32 x 3.3 GB in f32), so the batched log-prob splits them
+# into batches that fit; two walkers' f32 log-probs against their
+# per-walker f32 route, gated at the N_SAMPLER gate scaled by N / N_SAMPLER
+# (rounding grows with n) and rounded up: 1.8e-6 x 3.5 -> 1e-5.
+SPLIT_TOL = {"per-walker f32": 1e-5}
 
 SOURCES = {
     "radial_gram": ("albatross_tpu_torch/csrc/radial_gram.cu", "albatross_tpu/ops/pallas_gram.py:81"),
     "radial_gram_diag": ("albatross_tpu_torch/csrc/radial_gram.cu", "albatross_tpu/ops/pallas_gram.py:137"),
     "panel_cholinv": ("albatross_tpu_torch/csrc/panel_cholinv.cu", "albatross_tpu/ops/pallas_chol.py:121"),
+    # the sampler's walker-batched forms: jax.vmap over the same kernels
+    "radial_gram_diag_batched": ("albatross_tpu_torch/csrc/radial_gram.cu", "albatross_tpu/ops/pallas_gram.py:137"),
+    "panel_cholinv_batched": ("albatross_tpu_torch/csrc/panel_cholinv.cu", "albatross_tpu/ops/pallas_chol.py:121"),
 }
 PROFILE = "squared_exponential"
 
@@ -1561,6 +1595,222 @@ def check_mixed(torch, np, pt, _build, card: str) -> dict:
     return {"launches": total}
 
 
+def check_batched_kernels(torch, np, card: str) -> dict:
+    """The sampler's two batched kernel forms at full width, each against
+    its plain batched version and, slice by slice, against the unbatched
+    kernel (bit-equality printed; the gram's and the panel's tolerances
+    gate), a non-SPD panel's NaN kept in its own slice, and each timed
+    beside its bound."""
+    from albatross_tpu_torch.ops.panel_cholinv import (
+        panel_cholinv,
+        panel_cholinv_batched,
+        plain_panel_cholinv,
+    )
+    from albatross_tpu_torch.ops.radial_gram import (
+        plain_radial_gram_diag_batched,
+        radial_gram,
+        radial_gram_diag_batched,
+    )
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(SEED + 2)
+    x = torch.as_tensor(bench_data(np, N_SAMPLER, SEED + 2)[0], device=dev)
+    ls = (LENGTH_SCALE * (0.8 + 0.4 * torch.rand(W_KERNEL, generator=g))).to(dev)
+    sigma = (SIGMA * (0.8 + 0.4 * torch.rand(W_KERNEL, generator=g))).to(dev)
+    diag = (NOISE**2 * (0.8 + 0.4 * torch.rand(W_KERNEL, generator=g)) + JITTER)[:, None].expand(
+        W_KERNEL, N_SAMPLER).contiguous().to(dev)
+    results = {}
+    K = radial_gram_diag_batched(x, ls, sigma, diag, PROFILE)
+    err = (K - plain_radial_gram_diag_batched(x, ls, sigma, diag, PROFILE)).abs().max().item()
+    slice_err, equal = 0.0, True
+    for w in range(W_KERNEL):
+        one = radial_gram(x, x, ls[w].item(), sigma[w].item(), PROFILE, diag_add=diag[w])
+        slice_err = max(slice_err, (K[w] - one).abs().max().item())
+        equal &= bool(torch.equal(K[w], one))
+    del K, one
+    print(f"gram_diag batched ({W_KERNEL}, {N_SAMPLER}, {N_SAMPLER}) f32: max|kernel - plain| = {err:.3e}, "
+          f"max|slice - unbatched kernel| = {slice_err:.3e} (tol {GRAM_F32_TOL:g}); slices bit-equal to the "
+          f"unbatched kernel: {equal}")
+    if not (err <= GRAM_F32_TOL * sigma.max().item() ** 2 and slice_err <= GRAM_F32_TOL * sigma.max().item() ** 2):
+        fail(f"batched gram disagrees: plain {err}, unbatched {slice_err}")
+    results["radial_gram_diag_batched"] = {
+        "max_abs_err": err,
+        "ms": cuda_ms(torch, lambda: radial_gram_diag_batched(x, ls, sigma, diag, PROFILE)),
+        "plain_ms": cuda_ms(torch, lambda: plain_radial_gram_diag_batched(x, ls, sigma, diag, PROFILE),
+                            reps=3, batch=2),
+    }
+    # every walker's (N, N) output written once; x, the scalars and the
+    # diagonals read once; 7 operations an element at D = 1
+    results["radial_gram_diag_batched"]["bound_ms"], results["radial_gram_diag_batched"]["bound_by"] = bound(
+        4 * (W_KERNEL * N_SAMPLER * N_SAMPLER + N_SAMPLER + W_KERNEL * N_SAMPLER + 2 * W_KERNEL),
+        W_KERNEL * N_SAMPLER * N_SAMPLER * 7)
+
+    M = torch.randn((W_KERNEL, B_SAMPLER, B_SAMPLER), generator=g, dtype=torch.float64)
+    A = (M @ M.mT + B_SAMPLER * torch.eye(B_SAMPLER, dtype=torch.float64)).float().to(dev)
+    del M
+    U, Wu = panel_cholinv_batched(A)
+    Up, Wp = plain_panel_cholinv(A)
+    rel = max((((U - Up).abs().amax((1, 2)) / Up.abs().amax((1, 2))).max().item()),
+              (((Wu - Wp).abs().amax((1, 2)) / Wp.abs().amax((1, 2))).max().item()))
+    abs_err = max((U - Up).abs().max().item(), (Wu - Wp).abs().max().item())
+    slice_rel, equal = 0.0, True
+    for w in range(W_KERNEL):
+        Ui, Wi = panel_cholinv(A[w].contiguous())
+        slice_rel = max(slice_rel, ((U[w] - Ui).abs().max() / Ui.abs().max()).item(),
+                        ((Wu[w] - Wi).abs().max() / Wi.abs().max()).item())
+        equal &= bool(torch.equal(U[w], Ui) and torch.equal(Wu[w], Wi))
+    print(f"panel batched ({W_KERNEL}, {B_SAMPLER}, {B_SAMPLER}): relative to the max entry, kernel - plain "
+          f"{rel:.3e}, slice - unbatched kernel {slice_rel:.3e} (tol {PANEL_PLAIN_TOL:g}); slices bit-equal to "
+          f"the unbatched kernel: {equal}")
+    if not (rel <= PANEL_PLAIN_TOL and slice_rel <= PANEL_PLAIN_TOL):
+        fail(f"batched panel disagrees: plain {rel}, unbatched {slice_rel}")
+    bad, slot = A.clone(), W_KERNEL // 2
+    bad[slot, 5, 5] = -1.0
+    nan_slots = [w for w in range(W_KERNEL) if torch.isnan(panel_cholinv_batched(bad)[0][w]).any().item()]
+    print(f"panel batched: a non-SPD panel in slot {slot} gives NaN in slots {nan_slots}")
+    if nan_slots != [slot]:
+        fail(f"a non-SPD panel's NaN reached slots {nan_slots}")
+    single_bound, _ = panel_bound(B_SAMPLER)
+    results["panel_cholinv_batched"] = {
+        "max_abs_err": abs_err,
+        "ms": cuda_ms(torch, lambda: panel_cholinv_batched(A)),
+        "plain_ms": cuda_ms(torch, lambda: plain_panel_cholinv(A)),
+        "bound_ms": W_KERNEL * single_bound, "bound_by": "operations",
+    }
+    results["panel_cholinv_batched"]["single_ms"] = cuda_ms(torch, lambda: panel_cholinv(A[0].contiguous()))
+    for name, r in results.items():
+        print(f"[{card}] {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bound_ms'] / r['ms']:.1%} of it)")
+    print(f"[{card}] panel_cholinv one panel of the stack alone: {results['panel_cholinv_batched']['single_ms']:.4f} "
+          f"ms, so {W_KERNEL} in turn {W_KERNEL * results['panel_cholinv_batched']['single_ms']:.4f} ms")
+    return results
+
+
+def check_sampler(torch, np, pt, _build, card: str, args) -> dict:
+    """The ensemble sampler at N_SAMPLER on the bench model (the fused
+    route: one batched gram launch and 8 batched panel calls an
+    evaluation) and bench.py's row at N_SAMPLER_BENCH (the DSL route: one
+    gram launch a walker, the batched library Cholesky)."""
+    from albatross_tpu_torch.samplers import ensemble_sampler, ensemble_sampler_from_model, initial_params_from_jitter
+    from albatross_tpu_torch.samplers.ensemble import model_log_prob_fn
+
+    x_np, y_np = bench_data(np, N_SAMPLER, SEED + 2)
+    model = bench_model(pt)
+    data32 = pt.RegressionDataset.create(x_np, y_np, dtype=torch.float32)
+    data64 = pt.RegressionDataset.create(x_np, y_np, dtype=torch.float64)
+    walkers = initial_params_from_jitter(SEED + 2, model.get_tunable_parameters().values, W_SAMPLER)
+
+    def batched_errors():
+        got = model_log_prob_fn(model, data32)(walkers)
+        return got, {"f64": max_rel(got, ref64), "per-walker f32": max_rel(got, per32)}
+
+    walker_models = [model.set_tunable_params(w) for w in walkers]
+    ref64 = torch.stack([m.log_likelihood(data64).cpu() for m in walker_models])
+    per32 = torch.stack([m.log_likelihood(data32).cpu().double() for m in walker_models])
+    _build.reset_launch_counts()
+    got, errors = batched_errors()
+    torch.cuda.synchronize()
+    init_counts = dict(_build.LAUNCHES)
+    print(f"sampler N={N_SAMPLER}: initial log-probs of {W_SAMPLER} walkers, batched f32 {got[:3].tolist()}..., "
+          f"per-walker f64 {ref64[:3].tolist()}...; batched equal to the per-walker f32 route: "
+          f"{bool(torch.equal(got, per32))}; launches {init_counts}")
+    check_gates(f"sampler N={N_SAMPLER} batched f32 log-probs", errors, SAMPLER_TOLS)
+    check_counts(f"sampler N={N_SAMPLER} one batched evaluation", init_counts,
+                 {"radial_gram_diag_batched": 1, "panel_cholinv_batched": N_SAMPLER // B_SAMPLER,
+                  "panel_cholinv": 0, "radial_gram": 0, "radial_gram_diag": 0})
+    check_tf32_control(torch, f"sampler N={N_SAMPLER}", lambda: batched_errors()[1], SAMPLER_TOLS)
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t = time.perf_counter()
+    chain = ensemble_sampler_from_model(model, data32, W_SAMPLER, SAMPLER_ITERATIONS, key=SEED + 2)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    counts = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rate = chain.acceptance_rate()
+    evaluations = counts["radial_gram_diag_batched"]
+    print(f"[{card}] sampler N={N_SAMPLER} f32, {W_SAMPLER} walkers, {SAMPLER_ITERATIONS} iterations: "
+          f"{seconds:.3f} s with the initial evaluation, {W_SAMPLER * SAMPLER_ITERATIONS / seconds:.2f} "
+          f"walker-steps/s; acceptance {rate:.3f}; peak device memory {peak:.2f} GiB; launches {counts}")
+    if not (np.isfinite(chain.log_prob[-1]).all() and 0.0 < rate < 1.0
+            and chain.params.shape == (SAMPLER_ITERATIONS + 1, W_SAMPLER, 3)):
+        fail(f"sampler chain: acceptance {rate}, final log-probs {chain.log_prob[-1]}")
+    if args.profile:
+        half = model_log_prob_fn(model, data32)
+        print_profile(torch, lambda: half(walkers[:W_SAMPLER // 2]),
+                      f"sampler half-step evaluation N={N_SAMPLER}, {W_SAMPLER // 2} walkers", card, 2)
+    if not (evaluations >= 1 + 2 * SAMPLER_ITERATIONS
+            and counts["panel_cholinv_batched"] == evaluations * (N_SAMPLER // B_SAMPLER)
+            and counts["panel_cholinv"] == 0 and counts["radial_gram"] == 0 and counts["radial_gram_diag"] == 0):
+        fail(f"sampler launch counts {counts}")
+
+    # bench.py's sampler row: its model, data and sizes, a warm-up chain first
+    rng = np.random.default_rng(SEED + 9)
+    xb = np.sort(rng.uniform(0.0, 10.0, N_SAMPLER_BENCH)).astype(np.float32)
+    bench = pt.RegressionDataset.create(xb, np.sin(xb))
+    smodel = pt.gp_from_covariance(pt.SquaredExponential(1.5, 1.0) + pt.IndependentNoise(0.1), jitter=1e-5)
+    log_prob_fn = model_log_prob_fn(smodel, bench)
+    init = initial_params_from_jitter(0, smodel.get_tunable_parameters().values, W_SAMPLER)
+    ensemble_sampler(log_prob_fn, init, SAMPLER_BENCH_ITERATIONS, key=1)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t = time.perf_counter()
+    bchain = ensemble_sampler(log_prob_fn, init, SAMPLER_BENCH_ITERATIONS, key=1)
+    torch.cuda.synchronize()
+    bseconds = time.perf_counter() - t
+    bcounts = dict(_build.LAUNCHES)
+    print(f"[{card}] sampler bench row N={N_SAMPLER_BENCH} f32, {W_SAMPLER} walkers, {SAMPLER_BENCH_ITERATIONS} "
+          f"iterations: {bseconds:.3f} s, {W_SAMPLER * SAMPLER_BENCH_ITERATIONS / bseconds:.1f} walker-steps/s; "
+          f"acceptance {bchain.acceptance_rate():.3f}; launches {bcounts}")
+    if not (np.isfinite(bchain.log_prob[-1]).all() and bcounts["radial_gram"] >= W_SAMPLER * (
+            1 + SAMPLER_BENCH_ITERATIONS) and bcounts["panel_cholinv"] == 0 and bcounts["panel_cholinv_batched"] == 0):
+        fail(f"sampler bench row: launches {bcounts}, final log-probs {bchain.log_prob[-1]}")
+    return {"launches": counts, "bench_launches": bcounts, "split_launches": check_sampler_split(
+        torch, np, pt, _build, card)}
+
+
+def check_sampler_split(torch, np, pt, _build, card: str) -> dict:
+    """W_SAMPLER walkers' batched log-probs at the main path's N, where one
+    stack of their covariances would not fit on the card: the walkers run
+    in batches that fit, every value finite, two walkers against their
+    per-walker f32 route."""
+    from albatross_tpu_torch.models.gp import GaussianProcess
+    from albatross_tpu_torch.ops.batched_nlml import available_bytes, bytes_per_walker
+    from albatross_tpu_torch.samplers import initial_params_from_jitter
+
+    x_np, y_np = bench_data(np, N, SEED + 2)
+    data = pt.RegressionDataset.create(x_np, y_np, dtype=torch.float32)
+    model = bench_model(pt)
+    walkers = initial_params_from_jitter(SEED + 2, model.get_tunable_parameters().values, W_SAMPLER)
+    models = [model.set_tunable_params(w) for w in walkers]
+    dev = data.features.device
+    stack, free = W_SAMPLER * bytes_per_walker(N, 4, dev), available_bytes(dev)
+    if stack <= free:
+        fail(f"sampler split: {W_SAMPLER} walkers at N={N} ({stack / 2**30:.1f} GiB) fit in "
+             f"{free / 2**30:.1f} GiB: the check does not cross the card's memory")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t = time.perf_counter()
+    got = GaussianProcess.batched_log_likelihood(models, data)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    counts = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per32 = torch.stack([models[w].log_likelihood(data).cpu().double() for w in (0, W_SAMPLER - 1)])
+    errors = {"per-walker f32": max_rel(got[[0, W_SAMPLER - 1]], per32)}
+    batches = counts["radial_gram_diag_batched"]
+    print(f"[{card}] sampler split N={N} f32, {W_SAMPLER} walkers ({stack / 2**30:.1f} GiB as one stack, "
+          f"{free / 2**30:.1f} GiB available): {batches} batches, {seconds:.3f} s, peak device memory "
+          f"{peak:.2f} GiB; launches {counts}")
+    check_gates(f"sampler split N={N} batched f32 log-probs", errors, SPLIT_TOL)
+    if not (torch.isfinite(got).all() and batches >= 2 and counts["panel_cholinv_batched"] == batches * PANELS
+            and counts["panel_cholinv"] == 0):
+        fail(f"sampler split: launches {counts}, log-probs {got}")
+    return counts
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -1870,13 +2120,21 @@ def main() -> int:
         "temperature": check_temperature(torch, np, pt, _build, card)["launches"],
         "mixed": check_mixed(torch, np, pt, _build, card)["launches"],
     }
+    # -- the ensemble sampler: the walker-batched kernel forms --------------
+    results.update(check_batched_kernels(torch, np, card))
+    sampler = check_sampler(torch, np, pt, _build, card, args)
+    phase_counts["sampler"] = sampler["launches"]
+    phase_counts["sampler_bench"] = sampler["bench_launches"]
+    phase_counts["sampler_split"] = sampler["split_launches"]
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         r = results[name]
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": path_counts[name], "max_abs_err": r["max_abs_err"],
+            # the batched forms' own path is the sampler's
+            "launches": sampler["launches"][name] if name.endswith("_batched") else path_counts[name],
+            "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": None,  # no single PyTorch call computes a radial gram or a panel factor + inverse

@@ -125,3 +125,49 @@ def test_accurate_sum_of_logs_matches_jax(dtype):
     # invalid entries keep the builtin semantics: -inf and NaN surface
     assert float(tcomp.accurate_sum_of_logs(torch.tensor([1.0, 0.0], dtype=torch.from_numpy(x).dtype))) == -math.inf
     assert math.isnan(float(tcomp.accurate_sum_of_logs(torch.tensor([1.0, -1.0], dtype=torch.from_numpy(x).dtype))))
+
+
+def test_concatenate_joints_matches_jax():
+    rng = np.random.default_rng(4)
+    parts = []
+    for k in (2, 3, 1):
+        A = rng.standard_normal((k, k))
+        parts.append((rng.standard_normal(k), A @ A.T + np.eye(k)))
+    ref = ab.core.concatenate_joints([ab.JointDistribution(jnp.asarray(m), jnp.asarray(c)) for m, c in parts])
+    got = pt.core.concatenate_joints([pt.JointDistribution(torch.as_tensor(m), torch.as_tensor(c))
+                                      for m, c in parts])
+    assert got.covariance.dtype == torch.float64
+    np.testing.assert_array_equal(got.mean.numpy(), np.asarray(ref.mean))
+    np.testing.assert_array_equal(got.covariance.numpy(), np.asarray(ref.covariance))
+
+
+def test_pretty_strings_match_jax():
+    """The three pretty_* functions and the mixin's two methods give the
+    JAX package's strings, for values held as floats and as tensors."""
+    jk = ab.SquaredExponential(1.5, 1.2) + ab.IndependentNoise(0.25) + ab.Matern32(0.7, 0.3)
+    jk = jk.set_param_prior("squared_exponential_length_scale", ab.core.LogScaleUniformPrior(1e-2, 1e2))
+    jk = jk.set_param_prior("sigma_independent_noise", ab.core.GaussianPrior(0.2, 0.05))
+    jk = jk.set_param_value("sigma_matern_32", 500.0)  # large, still valid
+    jk = jk.set_param_prior("matern_32_length_scale", ab.core.UniformPrior(0.8, 3.0))  # 0.7: invalid
+    tk = pt.SquaredExponential() + pt.IndependentNoise() + pt.Matern32()
+    tk = tk.set_param_prior("squared_exponential_length_scale", pt.LogScaleUniformPrior(1e-2, 1e2))
+    tk = tk.set_param_prior("sigma_independent_noise", pt.GaussianPrior(0.2, 0.05))
+    tk = tk.set_param_prior("matern_32_length_scale", pt.UniformPrior(0.8, 3.0))
+    values = {k: float(p.value) for k, p in jk.get_params().items()}
+    tk = tk.set_param_values({k: (torch.tensor(v, dtype=torch.float64) if i % 2 else v)
+                              for i, (k, v) in enumerate(sorted(values.items()))})
+    jp, tp = jk.get_params(), tk.get_params()
+    for name in ("pretty_params", "pretty_priors", "pretty_param_details"):
+        assert getattr(pt.core, name)(tp) == getattr(ab.core, name)(jp), name
+    assert tk.pretty_params() == jk.pretty_params()
+    assert tk.pretty_param_details() == jk.pretty_param_details()
+    assert "valid: False" in tk.pretty_param_details()
+    assert pt.core.pretty_param_details({}) == ab.core.pretty_param_details({}) == ""
+
+
+def test_core_exports_the_mixin_and_validity():
+    assert pt.core.ParameterHandlingMixin is pt.core.parameters.ParameterHandlingMixin
+    assert isinstance(pt.SquaredExponential(), pt.core.ParameterHandlingMixin)
+    params = {"a": Parameter(0.5, tpriors.UniformPrior(0.0, 1.0))}
+    assert pt.core.params_are_valid(params)
+    assert not pt.core.params_are_valid({"a": Parameter(2.0, tpriors.UniformPrior(0.0, 1.0))})

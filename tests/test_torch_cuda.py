@@ -19,8 +19,19 @@ import albatross_tpu_torch as pt
 from albatross_tpu_torch import _build, config
 from albatross_tpu_torch.indexing import KFoldGrouper, LeaveOneOutGrouper
 from albatross_tpu_torch.ops.blocked_cholesky import blocked_cholesky_cols
-from albatross_tpu_torch.ops.panel_cholinv import panel_cholinv, plain_panel_cholinv
-from albatross_tpu_torch.ops.radial_gram import PROFILES, plain_radial_gram, radial_gram, radial_gram_cols
+from albatross_tpu_torch.ops.panel_cholinv import (
+    panel_cholinv,
+    panel_cholinv_batched,
+    plain_panel_cholinv,
+)
+from albatross_tpu_torch.ops.radial_gram import (
+    PROFILES,
+    plain_radial_gram,
+    plain_radial_gram_diag_batched,
+    radial_gram,
+    radial_gram_cols,
+    radial_gram_diag_batched,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -597,9 +608,132 @@ def test_mixed_feature_model_launches_the_gram_kernel(cuda):
         out[where] = counts, dict(_build.LAUNCHES), pred, diff
     counts, total, pred, diff = out["cuda"]
     _, _, ref, ref_diff = out["cpu"]
-    assert counts == {"radial_gram": 1, "radial_gram_diag": 0, "radial_gram_cols": 0, "panel_cholinv": 3}
+    assert counts == {"radial_gram": 1, "radial_gram_diag": 0, "radial_gram_cols": 0, "radial_gram_diag_batched": 0,
+                      "panel_cholinv": 3, "panel_cholinv_batched": 0}
     assert total["radial_gram"] == 1 + 1 + 2  # the fit, the cross gram, the differences' two grams
     errors = [_max_rel(pred.mean, ref.mean), _max_rel(pred.variance, ref.variance),
               _max_rel(diff.mean, ref_diff.mean), _max_rel(diff.variance, ref_diff.variance)]
     print(f"mixed features f32 card vs CPU f64: {errors}")
     assert max(errors) < 5e-3, errors
+
+
+# the sampler's batched forms: (W, n, d) with ragged n, the staged path
+# (d > 4) and one walker
+@pytest.mark.parametrize("shape", [(3, 300, 1), (2, 517, 6), (1, 130, 3), (5, 64, 2)])
+@pytest.mark.parametrize("profile", PROFILES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_batched_gram_matches_plain_and_the_unbatched_kernel(cuda, profile, dtype, shape):
+    """Each slice of the batched training covariance equals the unbatched
+    kernel's output bit for bit (the same tile code) and the plain batched
+    version within the gram's tolerance; one launch for the stack."""
+    w, n, d = shape
+    g = torch.Generator().manual_seed(n + d)
+    x = (10.0 * torch.rand((n, d), generator=g, dtype=torch.float64)).to(cuda, dtype)
+    ls = (0.5 + torch.rand(w, generator=g, dtype=torch.float64)).to(cuda, dtype)
+    sigma = (0.5 + torch.rand(w, generator=g, dtype=torch.float64)).to(cuda, dtype)
+    diag = (0.01 + torch.rand((w, n), generator=g, dtype=torch.float64)).to(cuda, dtype)
+    _build.reset_launch_counts()
+    K = radial_gram_diag_batched(x, ls, sigma, diag, profile)
+    assert _build.LAUNCHES["radial_gram_diag_batched"] == 1 and K.shape == (w, n, n)
+    atol = 1e-5 if dtype == torch.float32 else 1e-12
+    ref = plain_radial_gram_diag_batched(x.double(), ls.double(), sigma.double(), diag.double(), profile)
+    torch.testing.assert_close(K.double(), ref, rtol=0, atol=atol * float(sigma.max()) ** 2)
+    for i in range(w):
+        assert torch.equal(K[i], radial_gram(x, x, float(ls[i]), float(sigma[i]), profile, diag_add=diag[i]))
+    with pytest.raises(RuntimeError, match="forward only"):
+        radial_gram_diag_batched(x, ls.clone().requires_grad_(True), sigma, diag, profile)
+    with pytest.raises(ValueError, match="diag"):
+        radial_gram_diag_batched(x, ls, sigma, diag[:, :-1], profile)
+
+
+@pytest.mark.parametrize("w, b", [(3, 128), (2, 256), (5, 640), (4, 1024)])
+def test_batched_panel_matches_the_unbatched_kernel_and_isolates_nan(cuda, w, b):
+    g = torch.Generator().manual_seed(b)
+    M = torch.randn((w, b, b), generator=g, dtype=torch.float64)
+    A = (M @ M.mT + b * torch.eye(b, dtype=torch.float64)).to(cuda, torch.float32)
+    _build.reset_launch_counts()
+    U, Wu = panel_cholinv_batched(A)
+    assert _build.LAUNCHES["panel_cholinv_batched"] == 1 and _build.LAUNCHES["panel_cholinv"] == 0
+    Up, Wp = plain_panel_cholinv(A)
+    for i in range(w):
+        Ui, Wi = panel_cholinv(A[i].contiguous())
+        assert torch.equal(U[i], Ui) and torch.equal(Wu[i], Wi)
+        assert (U[i] - Up[i]).abs().max() <= 5e-6 * Up[i].abs().max()
+        assert (Wu[i] - Wp[i]).abs().max() <= 5e-6 * Wp[i].abs().max()
+    A[w // 2, 5, 5] = -1.0
+    U, _ = panel_cholinv_batched(A)
+    assert [bool(torch.isnan(U[i]).any()) for i in range(w)] == [i == w // 2 for i in range(w)]
+    with pytest.raises(TypeError, match="f32"):
+        panel_cholinv_batched(A.double())
+    with pytest.raises(RuntimeError, match="forward only"):
+        panel_cholinv_batched(A.clone().requires_grad_(True))
+
+
+@pytest.mark.parametrize("n", [300, 3072, 3000])
+def test_batched_log_likelihood_on_cuda_matches_cpu_f64(cuda, n):
+    """The sampler's batched log-prob, f32 and f64 on the card, against the
+    per-walker f64 log_likelihood on the CPU; the fused route launches one
+    batched gram, and above n = 2048 one batched panel call a panel (3072
+    factors views of the stack in place, 3000 pads copies)."""
+    from albatross_tpu_torch.models.gp import GaussianProcess
+
+    rng = np.random.default_rng(n)
+    x = np.sort(rng.uniform(0, 100, n))
+    y = np.sin(0.3 * x) + 0.1 * rng.standard_normal(n)
+    kernel = pt.SquaredExponential(0.5, 1.0) + pt.measurement_only(pt.IndependentNoise(0.3, assume_unique=True))
+    model = pt.gp_from_covariance(kernel, jitter=1e-4)
+    x0 = model.get_tunable_parameters().values
+    walkers = x0[None, :] + 0.05 * torch.as_tensor(rng.standard_normal((4, x0.shape[0])))
+    models = [model.set_tunable_params(w) for w in walkers]
+    cpu = pt.RegressionDataset.create(torch.as_tensor(x), torch.as_tensor(y))
+    ref = torch.stack([m.log_likelihood(cpu) for m in models])
+    for dtype, rtol in ((torch.float64, 1e-9), (torch.float32, 1e-4)):
+        data = pt.RegressionDataset.create(x, y, device=cuda, dtype=dtype)
+        _build.reset_launch_counts()
+        got = GaussianProcess.batched_log_likelihood(models, data)
+        assert got.device.type == "cpu" and got.dtype == torch.float64
+        torch.testing.assert_close(got, ref, rtol=rtol, atol=0)
+        assert _build.LAUNCHES["radial_gram_diag_batched"] == 1
+        panels = -(-n // 1024) if (n > 2048 and dtype == torch.float32) else 0
+        assert _build.LAUNCHES["panel_cholinv_batched"] == panels and _build.LAUNCHES["panel_cholinv"] == 0
+
+
+def test_batched_log_likelihood_splits_at_the_cards_memory(cuda, monkeypatch):
+    """With the card's available memory read as 2.5 walkers' worth, 4
+    walkers at n = 3072 run as batches of 2: two batched gram launches, the
+    same log-probs as one batch; a reading below one walker raises."""
+    from albatross_tpu_torch.models.gp import GaussianProcess
+    from albatross_tpu_torch.ops import batched_nlml
+
+    rng = np.random.default_rng(9)
+    n = 3072
+    x = np.sort(rng.uniform(0, 100, n))
+    y = np.sin(0.3 * x) + 0.1 * rng.standard_normal(n)
+    kernel = pt.SquaredExponential(0.5, 1.0) + pt.measurement_only(pt.IndependentNoise(0.3, assume_unique=True))
+    model = pt.gp_from_covariance(kernel, jitter=1e-4)
+    x0 = model.get_tunable_parameters().values
+    models = [model.set_tunable_params(x0 + 0.05 * torch.as_tensor(rng.standard_normal(x0.shape[0])))
+              for _ in range(4)]
+    data = pt.RegressionDataset.create(x, y, device=cuda, dtype=torch.float32)
+    whole = GaussianProcess.batched_log_likelihood(models, data)
+    per = batched_nlml.bytes_per_walker(n, 4, torch.device(cuda))
+    monkeypatch.setattr(batched_nlml, "available_bytes", lambda device: int(2.5 * per / batched_nlml.MEMORY_SHARE))
+    _build.reset_launch_counts()
+    split = GaussianProcess.batched_log_likelihood(models, data)
+    assert _build.LAUNCHES["radial_gram_diag_batched"] == 2
+    torch.testing.assert_close(split, whole, rtol=1e-6, atol=0)
+    monkeypatch.setattr(batched_nlml, "available_bytes", lambda device: per // 2)
+    with pytest.raises(MemoryError, match="4 walkers at n = 3072"):
+        GaussianProcess.batched_log_likelihood(models, data)
+
+
+def test_sampler_chain_on_cuda(cuda):
+    from albatross_tpu_torch.samplers import ensemble_sampler_from_model
+
+    rng = np.random.default_rng(3)
+    x = np.sort(rng.uniform(0, 20, 200))
+    y = np.sin(x) + 0.1 * rng.standard_normal(200)
+    kernel = pt.SquaredExponential(1.5, 1.0) + pt.measurement_only(pt.IndependentNoise(0.1, assume_unique=True))
+    data = pt.RegressionDataset.create(x, y, device=cuda, dtype=torch.float32)
+    chain = ensemble_sampler_from_model(pt.gp_from_covariance(kernel, jitter=1e-5), data, 8, 5, key=2)
+    assert chain.params.shape == (6, 8, 3) and np.isfinite(chain.log_prob).all()

@@ -25,17 +25,20 @@ def test_import_leaves_jax_out():
         "names = [m.name for m in pkgutil.walk_packages(albatross_tpu_torch.__path__, 'albatross_tpu_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "assert 'albatross_tpu_torch.models.ransac' in names and len(names) > 50, names\n"
+        "assert {'albatross_tpu_torch.models.ransac', 'albatross_tpu_torch.samplers.ensemble',\n"
+        "        'albatross_tpu_torch.serialize.checkpoint', 'albatross_tpu_torch._native'} <= set(names), names\n"
+        "assert len(names) > 70, names\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'albatross_tpu.'))]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
 
-@pytest.mark.parametrize("package", ["kernels", "stats", "models"])
+@pytest.mark.parametrize("package", ["core", "evaluation", "tuning", "indexing", "kernels", "stats", "models",
+                                     "samplers", "serialize", "utils"])
 def test_every_jax_name_has_a_counterpart(package):
-    """Each name the JAX package's kernels, stats and models packages
-    export exists in the port's package of the same path."""
+    """Each name a ported package of the JAX package exports exists in the
+    port's package of the same path."""
     import albatross_tpu
 
     exported = getattr(albatross_tpu, package).__all__
@@ -76,7 +79,8 @@ def test_cpu_tensors_never_launch_kernels():
     pred = model.fit(data).predict(torch.linspace(0, 100, 50)).marginal()
     assert torch.isfinite(ll) and torch.isfinite(pred.variance).all()
     assert ll.dtype == torch.float32
-    assert _build.LAUNCHES == {"radial_gram": 0, "radial_gram_diag": 0, "radial_gram_cols": 0, "panel_cholinv": 0}
+    assert _build.LAUNCHES == {"radial_gram": 0, "radial_gram_diag": 0, "radial_gram_cols": 0,
+                               "radial_gram_diag_batched": 0, "panel_cholinv": 0, "panel_cholinv_batched": 0}
 
 
 def test_params_from_numpy():
