@@ -12,6 +12,9 @@ models, RANSAC outlier rejection, the chi-squared and Gaussian
 statistics (``stats``), fast LOO / LOGO cross-validation (``evaluation``,
 ``indexing``),
 the tunable-parameter round trip and the tuners (``tuning``), the
+NLML accuracy modes (compensated NLML, double-word Cholesky), the
+mesh-distributed exact GP on ``torch.distributed`` (``parallel``, the 1-D
+row layout), the
 ensemble MCMC sampler (``samplers``), checkpoints and parameter JSON
 (``serialize``), host utilities (``utils``: CSV, random draws, graphs,
 Chebyshev bases, profiling), and the blocked Cholesky and block solvers
@@ -30,6 +33,7 @@ from . import (
     kernels,
     models,
     ops,
+    parallel,
     samplers,
     serialize,
     stats,

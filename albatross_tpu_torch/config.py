@@ -6,9 +6,12 @@ about three decimal digits, which is what the JAX package's single-pass
 bf16 default cost it (NaN factorizations at large N).  TF32 is therefore
 off; enabling it is an explicit opt-in for a later change.
 
-The TPU-only knobs of the JAX package (``DW_DOT_ALGORITHM``,
-``CHOLESKY_TRAILING_BF16``) are not ported: both exist only because of
-the TPU matrix unit's bf16 passes.
+The TPU-only knobs of the JAX package are not ported:
+``DW_DOT_ALGORITHM`` and ``CHOLESKY_TRAILING_BF16`` exist only because of
+the TPU matrix unit's bf16 passes; ``USE_PALLAS_GRAM``,
+``PALLAS_GRAM_MIN_ELEMENTS``, ``PALLAS_GRAM_AUTO_MIN_D`` and
+``PANEL_FACTORIZER`` pick between XLA and a Pallas kernel on the TPU,
+where the port always runs its hand-written kernels.
 """
 
 from __future__ import annotations
@@ -35,6 +38,37 @@ CHOLESKY_ALGORITHM: str = "right"
 # of the card's 79.18 GiB at N = 57344; by N^2 growth its ceiling is near
 # N = 51500.  The JAX package's 57344 is the figure of a 16 GB TPU.
 CHOLESKY_FUSED_MIN_N: int = 49152
+
+
+# NLML accuracy mode (ops/compensated.py compensated_nll): double-word
+# reductions for the log-determinant and the quadratic term, which two
+# steps of iterative refinement with a double-word residual polish.  Read
+# by GaussianProcess.log_likelihood; it factorizes the assembled training
+# covariance.
+NLML_COMPENSATED: bool = False
+
+# Factorization accuracy mode, read by CholeskyFactor._factor_core and
+# nlml_terms above n = 2048: None is the plain blocked loop; "double_word"
+# carries the trailing matrix as an unevaluated (hi, lo) pair
+# (ops/compensated.py blocked_cholesky_dw), so each panel's input is one
+# rounding from exact; "high" asks the JAX package for 3-pass bf16
+# products on the TPU, which every f32 product here already exceeds (full
+# f32, TF32 off), so it takes the default path.
+CHOLESKY_PRECISION: str | None = None
+
+# Panel size of the blocked factorization: None keeps the device's policy
+# (ops/blocked_cholesky.py default_block_size); an int must be a multiple
+# of 128, and on CUDA f32 at most MAX_CUDA_PANEL = 1024, the panel
+# kernel's bound.
+CHOLESKY_BLOCK_SIZE: int | None = None
+
+
+def cholesky_precision() -> str | None:
+    """``CHOLESKY_PRECISION``, checked: unknown names raise."""
+    if CHOLESKY_PRECISION not in (None, "high", "double_word"):
+        raise ValueError(f"unknown CHOLESKY_PRECISION {CHOLESKY_PRECISION!r}; "
+                         'use None, "high" or "double_word"')
+    return CHOLESKY_PRECISION
 
 
 def cholesky_algorithm() -> str:

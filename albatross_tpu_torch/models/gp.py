@@ -10,7 +10,8 @@ Counterpart of ``albatross_tpu.models.gp`` (main path):
   rounding-scale negatives;
 * predict joint : K** - K*^T K^-1 K*;
 * log_likelihood: -NLL(y - m(X), K(X, X)) + sum of prior log-pdfs, with no
-  target variance added, as the reference does.  From
+  target variance added, as the reference does; ``config.NLML_COMPENSATED``
+  and ``CHOLESKY_PRECISION = "double_word"`` select its accuracy modes.  From
   ``config.CHOLESKY_FUSED_MIN_N`` points on (or with
   ``CHOLESKY_ALGORITHM = "right_fused"``) a kernel of the fused pattern
   takes the lazy-gram loop, which never holds the N x N covariance;
@@ -44,6 +45,7 @@ from ..kernels.features import Measurement, as_measurement
 from ..kernels.means import MeanFunction, ZeroMean
 from ..ops.batched_nlml import batched_nlml_terms, walkers_per_batch
 from ..ops.block import build_block_symmetric
+from ..ops.compensated import compensated_nll
 from ..ops.linalg import CholeskyFactor, ExplainedCovariance
 from ..ops.radial_gram import (
     fused_training_covariance,
@@ -289,20 +291,34 @@ class GaussianProcess(ModelBase):
         covariance is materialized, except on the lazy-gram loop: from
         ``config.CHOLESKY_FUSED_MIN_N`` points on, or always with
         ``CHOLESKY_ALGORITHM = "right_fused"``, above n = 2048 and for a
-        kernel of the fused pattern.  With ``safe_factorization`` the
-        covariance is always materialized and factored by factorize_safe."""
+        kernel of the fused pattern, unless an accuracy mode is on.  With
+        ``safe_factorization`` the covariance is always materialized and
+        factored by factorize_safe.  ``config.NLML_COMPENSATED`` assembles
+        the factor and returns ``-compensated_nll`` (ops/compensated.py);
+        ``config.CHOLESKY_PRECISION = "double_word"`` factors through
+        ``blocked_cholesky_dw``.  Every route is differentiable."""
         measurements = as_measurement(dataset.features)
         zero_mean = self.mean_function.remove_from(measurements, dataset.targets.mean)
         n = zero_mean.shape[0]
         algorithm = config.cholesky_algorithm()
         if algorithm == "right" and config.CHOLESKY_FUSED_MIN_N and n >= config.CHOLESKY_FUSED_MIN_N:
             algorithm = "right_fused"
+        # the accuracy modes need the materialized covariance
+        accuracy_mode = config.cholesky_precision() == "double_word" or config.NLML_COMPENSATED
         pieces = None
-        if algorithm == "right_fused" and n > 2048 and not self.safe_factorization:
+        if algorithm == "right_fused" and n > 2048 and not self.safe_factorization and not accuracy_mode:
             pieces = self._training_cov_fused_pieces(measurements)
         if pieces is not None:
             x2, ls, sigma, diag_add, profile = pieces
             ll = -_nll_from_whitened(*_fused_gram_nlml(x2, ls, sigma, diag_add, zero_mean, profile=profile))
+        elif config.NLML_COMPENSATED and not self.safe_factorization:
+            # K_eff is the matrix that was factorized, so the refinement's
+            # residual sees exactly it
+            cov, fused = self._training_covariance(measurements, None)
+            jitter = 0.0 if fused else self.jitter
+            chol = self._factorize(cov, jitter_applied=fused)
+            K_eff = cov + jitter * torch.eye(n, dtype=cov.dtype, device=cov.device) if jitter else cov
+            ll = -compensated_nll(chol, K_eff, zero_mean)
         elif self.safe_factorization:
             cov, fused = self._training_covariance(measurements, None)
             ll = -negative_log_likelihood(zero_mean, self._factorize(cov, jitter_applied=fused))

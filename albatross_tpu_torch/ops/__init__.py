@@ -21,7 +21,22 @@ from .blocked_cholesky import (
     blocked_tri_inverse,
     cuda_block_size,
 )
-from .compensated import accurate_log, accurate_sum_of_logs, dw_sum, two_prod, two_sum
+from .compensated import (
+    accurate_log,
+    accurate_log_guarded,
+    accurate_sum_of_logs,
+    blocked_cholesky_dw,
+    compensated_nll,
+    compensated_nll_dw,
+    dot2,
+    dw_add,
+    dw_log_determinant,
+    dw_matvec,
+    dw_sum,
+    refined_quadratic,
+    two_prod,
+    two_sum,
+)
 from .linalg import CholeskyFactor, DirectInverse, ExplainedCovariance, truncated_psd_solve, vertical_stack
 from .nlml import blocked_lauum, spd_inverse_from_factor, tri_inverse_full
 from .panel_cholinv import panel_cholinv, plain_panel_cholinv

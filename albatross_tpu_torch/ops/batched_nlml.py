@@ -102,7 +102,7 @@ def batched_nlml_terms(K: torch.Tensor, rhs: torch.Tensor, jitter: float = 0.0):
         L = cholesky(K)
         white = torch.linalg.solve_triangular(L, rhs[..., None], upper=False)[..., 0]
         return 2.0 * accurate_sum_of_logs(torch.diagonal(L, dim1=-2, dim2=-1), dim=-1), white
-    b = default_block_size(n, K.device)
+    b = default_block_size(n, K.device, K.dtype)
     cols = padded_column_panels(lambda k0, bk: K[:, k0:, k0:k0 + bk], n, b)
     m = len(cols) * b
     diag, white = _cols_core(cols, m, b, torch.nn.functional.pad(rhs, (0, m - n)),

@@ -72,8 +72,21 @@ def cuda_block_size(n: int) -> int:
     return MAX_CUDA_PANEL
 
 
-def default_block_size(n: int, device: torch.device) -> int:
-    return cuda_block_size(n) if device.type == "cuda" else auto_block_size(n)
+def default_block_size(n: int, device: torch.device, dtype: torch.dtype | None = None) -> int:
+    """``config.CHOLESKY_BLOCK_SIZE`` when it is set, checked (a multiple of
+    128; on CUDA f32 at most MAX_CUDA_PANEL, the panel kernel's bound);
+    else ``cuda_block_size`` on CUDA and ``auto_block_size`` elsewhere."""
+    from .. import config
+
+    b = config.CHOLESKY_BLOCK_SIZE
+    if b is None:
+        return cuda_block_size(n) if device.type == "cuda" else auto_block_size(n)
+    if b <= 0 or b % 128 != 0:
+        raise ValueError(f"config.CHOLESKY_BLOCK_SIZE must be a positive multiple of 128, got {b}")
+    if device.type == "cuda" and dtype == torch.float32 and b > MAX_CUDA_PANEL:
+        raise ValueError(f"config.CHOLESKY_BLOCK_SIZE = {b} exceeds the CUDA panel kernel's bound "
+                         f"MAX_CUDA_PANEL = {MAX_CUDA_PANEL} for f32")
+    return b
 
 
 def cholesky(K: torch.Tensor) -> torch.Tensor:
@@ -140,7 +153,7 @@ def blocked_cholesky(K: torch.Tensor, block_size: int | None = None, rhs=None):
     A single panel (n <= block size) is factored by torch.linalg.cholesky;
     larger matrices go through the column-panel loop."""
     n = K.shape[0]
-    b = block_size if block_size is not None else default_block_size(n, K.device)
+    b = block_size if block_size is not None else default_block_size(n, K.device, K.dtype)
     if n > b:
         return blocked_cholesky_cols(K, block_size=b, rhs=rhs)
     L = cholesky(K)
@@ -165,7 +178,7 @@ def blocked_cholesky_cols(
     n = K.shape[0]
     if not assemble and rhs is None:
         raise ValueError("assemble=False requires rhs (the NLML fused path)")
-    b = block_size if block_size is not None else default_block_size(n, K.device)
+    b = block_size if block_size is not None else default_block_size(n, K.device, K.dtype)
     if n <= b:
         out = blocked_cholesky(K, b, rhs=rhs)
         if not assemble:
@@ -218,7 +231,8 @@ def blocked_cholesky_cols_fused(
         if rhs is None:
             raise ValueError("blocked_cholesky_cols_fused needs rhs or device to pick its block size")
         device = rhs.device
-    b = block_size if block_size is not None else default_block_size(n, torch.device(device))
+    b = block_size if block_size is not None else default_block_size(
+        n, torch.device(device), None if rhs is None else rhs.dtype)
     if n <= b:
         K = col_fn(0, n)
         return blocked_cholesky_cols(K, block_size=b, rhs=None if rhs is None else rhs.to(K.dtype),

@@ -9,7 +9,10 @@ cross-validation (ops/nlml.py) and the serving-mode explicit inverse; the
 ``truncated_psd_solve`` and ``vertical_stack``.  Above n = 2048 the
 factorization is the blocked column-panel loop; at or below it
 torch.linalg.cholesky plus triangular solves.  ``factorize_safe`` always
-takes the library Cholesky, as the JAX package does.
+takes the library Cholesky, as the JAX package does.  With
+``config.CHOLESKY_PRECISION = "double_word"`` the factorization above
+n = 2048 carries its trailing matrix in double word
+(ops/compensated.py blocked_cholesky_dw).
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from typing import Sequence
 import torch
 
 from .blocked_cholesky import blocked_cholesky_cols, blocked_cholesky_cols_fused, cholesky
-from .compensated import accurate_sum_of_logs
+from .compensated import accurate_sum_of_logs, blocked_cholesky_dw
 from .nlml import blocked_lauum, tri_inverse_full
 
 # the JAX package's blocked-factorization threshold
@@ -57,8 +60,12 @@ class CholeskyFactor:
         """One place owns the symmetrize/jitter policy and the blocked
         threshold, so the NLML path never factorizes a different matrix
         than the fit path."""
+        from .. import config
+
         K = _prepare(K, jitter, assume_symmetric)
         if K.shape[0] > _BLOCKED_MIN_N:
+            if config.cholesky_precision() == "double_word":
+                return blocked_cholesky_dw(K, rhs=rhs)
             return blocked_cholesky_cols(K, rhs=rhs)
         L = cholesky(K)
         if rhs is None:
@@ -88,18 +95,25 @@ class CholeskyFactor:
         panel [j0, j0 + b), every diagonal term included: the lazy-gram loop
         (blocked_cholesky_cols_fused) then factors without any (n, n)
         matrix, and ``K`` and ``jitter`` are ignored."""
+        from .. import config
+
         if rhs.ndim != 1:
             raise ValueError(f"nlml_terms expects a 1-D rhs, got shape {tuple(rhs.shape)}")
+        double_word = config.cholesky_precision() == "double_word"
         if col_fn is not None:
-            from .. import config
-
+            if double_word:
+                raise ValueError(
+                    "nlml_terms(col_fn=...) is incompatible with CHOLESKY_PRECISION='double_word' "
+                    "(the double-word carry needs the materialized matrix); pass K instead"
+                )
             config.cholesky_algorithm()  # "left" raises
             diag, white = blocked_cholesky_cols_fused(col_fn, rhs.shape[0], rhs=rhs, assemble=False)
             return _sum_of_logs(diag), white
         K = _prepare(K, jitter, assume_symmetric)
         rhs = rhs.to(K.dtype)
         if K.shape[0] > _BLOCKED_MIN_N:
-            diag, white = blocked_cholesky_cols(K, rhs=rhs, assemble=False)
+            factor = blocked_cholesky_dw if double_word else blocked_cholesky_cols
+            diag, white = factor(K, rhs=rhs, assemble=False)
             return _sum_of_logs(diag), white
         L = cholesky(K)
         return _sum_of_logs(torch.diagonal(L)), _lower_solve(L, rhs)

@@ -1,0 +1,109 @@
+"""Mesh-sharded gram assembly, 1-D row layout.
+
+Counterpart of ``albatross_tpu.parallel.gram``'s ``sharded_gram`` and
+``sharded_cross_gram``: rank d builds its row panel
+
+    K[d b:(d + 1) b, :] = k(X_local, X_full),    b = N / ranks,
+
+with the covariance DSL on two distinct feature batches, so the (N, N)
+gram never exists on one rank.  A Euclidean radial term launches the gram
+kernel (``radial_gram``) on each panel.  Because X_local and X_full are
+distinct batches, the noise terms compare features by value, as the JAX
+package's ``shard_map`` does: under ``assume_unique=True`` a duplicated
+input puts sigma^2 off the diagonal of the sharded gram, where the
+single-process gram's identity shortcut does not (the noise kernels'
+contract).  The result is a row-sharded ``DTensor``.
+
+The kernel's parameters and X_full are replicated values used in this
+rank's rows, so they enter through ``vary``: a gradient with respect to
+them sums every rank's rows.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch.distributed.tensor import DTensor
+
+from ..core.dataset import feature_count, first_leaf, subset_features
+from ..kernels.features import Measurement
+from ._comm import Axis, mesh_axis, vary
+from .mesh import row_sharded
+
+
+def _rows(X, r0: int, b: int):
+    if isinstance(X, torch.Tensor):
+        return X[r0:r0 + b]
+    return subset_features(X, torch.arange(r0, r0 + b))
+
+
+def _varied(kernel, ax: Axis, device):
+    """``kernel`` with each parameter that requires grad moved to
+    ``device`` and marked by ``vary`` (on the device, so the backward
+    collectives of one pass run on one autograd thread)."""
+    if ax.size == 1:
+        return kernel
+    values = {name: vary(p.value.to(device), ax) for name, p in kernel.get_params().items()
+              if isinstance(p.value, torch.Tensor) and p.value.requires_grad}
+    return kernel.set_param_values(values) if values else kernel
+
+
+def _local_gram_rows(kernel, X, ax: Axis, measurement: bool = False,
+                    target_variance: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """This rank's (b, N) row panel of the gram of X (every rank holds X
+    whole), with ``target_variance`` on its diagonal."""
+    n = feature_count(X)
+    if n % ax.size != 0:
+        raise ValueError(f"N={n} not divisible by mesh axis size {ax.size}")
+    b = n // ax.size
+    r0 = ax.rank * b
+    k = _varied(kernel, ax, first_leaf(X).device)
+    if isinstance(X, torch.Tensor) and X.requires_grad:
+        X = vary(X, ax)
+    Xl, Xf = _rows(X, r0, b), X
+    if measurement:
+        Xl, Xf = Measurement(Xl), Measurement(Xf)
+    panel = k.matrix_or_none(Xl, Xf)
+    if panel is None:
+        raise TypeError("covariance undefined for these features")
+    if target_variance is not None:
+        v = vary(target_variance, ax)[r0:r0 + b].to(panel.dtype)
+        i = torch.arange(b, device=panel.device)
+        panel = panel.index_put((i, i + r0), v, accumulate=True)
+    return panel
+
+
+def sharded_gram(
+    kernel,
+    X,
+    mesh,
+    axis: str = "data",
+    measurement: bool = False,
+    target_variance: Optional[torch.Tensor] = None,
+) -> DTensor:
+    """Row-sharded (N, N) gram of a feature batch that every rank holds.
+
+    N must divide the mesh axis size.  ``measurement=True`` applies the
+    Measurement tag to both sides (training covariance semantics);
+    ``target_variance`` (N,) is added to the diagonal."""
+    ax = mesh_axis(mesh, axis)
+    panel = _local_gram_rows(kernel, X, ax, measurement, target_variance)
+    n = panel.shape[1]
+    return DTensor.from_local(panel, mesh, row_sharded(mesh, axis), run_check=False,
+                              shape=torch.Size((n, n)), stride=(n, 1))
+
+
+def sharded_cross_gram(kernel, X_train, X_test, mesh, axis: str = "data") -> DTensor:
+    """(N_train, M) cross covariance, row-sharded over the train axis."""
+    ax = mesh_axis(mesh, axis)
+    n = feature_count(X_train)
+    if n % ax.size != 0:
+        raise ValueError(f"N={n} not divisible by mesh axis size {ax.size}")
+    b = n // ax.size
+    panel = _varied(kernel, ax, first_leaf(X_train).device).matrix_or_none(
+        _rows(X_train, ax.rank * b, b), X_test)
+    if panel is None:
+        raise TypeError("covariance undefined for these features")
+    return DTensor.from_local(panel, mesh, row_sharded(mesh, axis), run_check=False,
+                              shape=torch.Size((n, panel.shape[1])), stride=(panel.shape[1], 1))

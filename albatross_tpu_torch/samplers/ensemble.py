@@ -226,21 +226,49 @@ def model_log_prob_fn(model, dataset) -> Callable:
                                         for m in walker_models(walkers)])
 
 
+def _walker_sharded(log_prob_fn: Callable, mesh, mesh_axis: str) -> Callable:
+    """``log_prob_fn`` over the ranks of a mesh axis: each rank evaluates
+    its contiguous slice of the walkers (as even as the count allows), and
+    one all-reduce of a zero-padded (n_walkers,) buffer on the mesh's
+    device gives every rank every log-prob, bit for bit."""
+    import torch.distributed as dist
+
+    from ..parallel._comm import mesh_axis as _mesh_axis
+
+    ax = _mesh_axis(mesh, mesh_axis)
+
+    def fn(walkers):
+        n = walkers.shape[0]
+        counts = [n // ax.size + (1 if r < n % ax.size else 0) for r in range(ax.size)]
+        start = sum(counts[:ax.rank])
+        out = torch.zeros(n, dtype=torch.float64, device=mesh.device_type)
+        if counts[ax.rank]:
+            out[start:start + counts[ax.rank]] = _as_host_f64(log_prob_fn(walkers[start:start + counts[ax.rank]]))
+        if ax.size > 1:
+            dist.all_reduce(out, group=ax.group)
+        return out.cpu()
+
+    return fn
+
+
 def ensemble_sampler_from_model(model, dataset, n_walkers: int, max_iterations: int, key,
                                 jitter_sd: float = 0.1, callback: Optional[Callable] = None,
                                 callback_interval: int = 64, mesh=None,
                                 mesh_axis: str = "chain") -> EnsembleChain:
     """Sample the model's tunable parameters under its log-likelihood on
     ``dataset`` (prior included), from walkers jittered around the current
-    values.  Walker sharding over a mesh (``mesh``) belongs to the port's
-    ``parallel`` package, not ported yet: only ``mesh=None`` is taken."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"ensemble_sampler_from_model(mesh=...) shards walkers over the mesh axis {mesh_axis!r}, "
-            "which needs the parallel package (ROADMAP queue 1 item 7, not ported yet); pass mesh=None"
-        )
+    values.
+
+    With a ``DeviceMesh`` (``parallel.make_mesh``) every rank of it calls
+    this with the same arguments: each evaluates its slice of every
+    half-step's walker batch, the log-probs are gathered, and every rank
+    holds the same chain as an unsharded run (the counterpart of the JAX
+    package's sharding of the ``vmap``'s walker axis over ``mesh_axis``)."""
     generator = as_generator(key)
     initial = initial_params_from_jitter(generator, model.get_tunable_parameters().values, n_walkers,
                                          jitter_sd)
-    return ensemble_sampler(model_log_prob_fn(model, dataset), initial, max_iterations, generator,
+    log_prob_fn = model_log_prob_fn(model, dataset)
+    if mesh is not None:
+        log_prob_fn = _walker_sharded(log_prob_fn, mesh, mesh_axis)
+    return ensemble_sampler(log_prob_fn, initial, max_iterations, generator,
                             callback=callback, callback_interval=callback_interval)

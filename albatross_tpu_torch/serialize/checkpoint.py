@@ -22,13 +22,21 @@ pickled dict of the version, the object graph and the arrays.
   version gate with a clear error.
 * Tensors load onto ``config.device(device)``: the card unless the caller
   asks for the CPU.  They load detached (no autograd history is saved).
-
-Mesh-bound (sharded) state waits for the port's ``parallel`` package.
+* A distributed fit is saved by its mesh's signature, the dimension names
+  and shape, never by a process group: each ``DeviceMesh`` becomes a
+  ("mesh", names, shape) id and each ``DTensor`` its whole value (gathered
+  over the mesh, so every rank of the mesh calls ``save_checkpoint``; each
+  writes the file whole and renames it into place) with its placements.
+  ``load_checkpoint(path, mesh=...)`` rebinds them to the given mesh, or,
+  without one, to a mesh of the same names and shape over the current
+  world; a missing or mismatched mesh raises, with the JAX package's
+  messages.  A checkpoint with a mesh is version 2, one without stays 1.
 """
 
 from __future__ import annotations
 
 import io
+import os
 import pickle
 import zlib
 from typing import Any
@@ -39,8 +47,10 @@ import torch
 from .. import config
 
 # Highest version this reader understands.  Version history:
-#   1 -- the port's first format.
-SERIALIZATION_VERSION = 1
+#   1 -- the port's first format;
+#   2 -- the object graph may hold mesh and DTensor ids (distributed fits).
+# Writers stamp the smallest version the payload needs.
+SERIALIZATION_VERSION = 2
 MAGIC = b"ALBTORCH"
 JAX_MAGIC = b"ALBTPU01"  # the JAX package's checkpoints
 
@@ -72,8 +82,23 @@ class _ArrayPickler(pickle.Pickler):
         self.arrays: list = []
         self._index: dict = {}
         self._seen: list = []  # keeps each id()'s object alive while pickling
+        self.used_mesh = False
 
     def persistent_id(self, obj):
+        from torch.distributed.device_mesh import DeviceMesh
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(obj, DeviceMesh):
+            self.used_mesh = True
+            return _mesh_id(obj)
+        if isinstance(obj, DTensor):
+            self.used_mesh = True
+            if id(obj) not in self._index:
+                self._index[id(obj)] = len(self.arrays)
+                self.arrays.append(_whole(obj).detach().cpu().numpy())
+                self._seen.append(obj)
+            placements = tuple("S0" if p.is_shard(0) else "R" for p in obj.placements)
+            return "dtensor", self._index[id(obj)], placements, _mesh_id(obj.device_mesh)
         if isinstance(obj, torch.Tensor):
             kind = "tensor"
         elif isinstance(obj, np.ndarray) and not obj.dtype.hasobject:
@@ -87,11 +112,33 @@ class _ArrayPickler(pickle.Pickler):
         return kind, self._index[id(obj)]
 
 
+def _mesh_id(mesh) -> tuple:
+    return "mesh", tuple(mesh.mesh_dim_names or ()), tuple(mesh.shape)
+
+
+def _whole(t):
+    """A DTensor's whole value on every rank of its mesh: its rows
+    gathered over the mesh dimension it is sharded on."""
+    from ..parallel._comm import gather_rows, mesh_axis
+
+    local = t.to_local()
+    names = t.device_mesh.mesh_dim_names
+    for name, p in zip(names, t.placements):
+        if p.is_shard(0):
+            with torch.no_grad():
+                local = gather_rows(local, mesh_axis(t.device_mesh, name), local.shape[0])
+        elif not p.is_replicate():
+            raise ValueError(f"checkpoints hold row-sharded or replicated DTensors, not {t.placements}")
+    return local
+
+
 class _RestrictedUnpickler(pickle.Unpickler):
-    def __init__(self, file, arrays=None, device=None):
+    def __init__(self, file, arrays=None, device=None, mesh=None):
         super().__init__(file)
         self._arrays = arrays
         self._device = device
+        self._mesh = mesh
+        self._meshes: dict = {}
         self._loaded: dict = {}
 
     def find_class(self, module, name):
@@ -107,7 +154,42 @@ class _RestrictedUnpickler(pickle.Unpickler):
             "and an explicit list of builtin, collections, functools, numpy and torch types may load"
         )
 
+    def _bind_mesh(self, pid):
+        """The mesh a ("mesh", names, shape) id rebinds to."""
+        _, names, shape = pid
+        if pid in self._meshes:
+            return self._meshes[pid]
+        mesh = self._mesh
+        if mesh is not None:
+            if tuple(mesh.mesh_dim_names or ()) != tuple(names):
+                raise ValueError(f"checkpoint mesh axes {tuple(names)} do not match the provided mesh axes "
+                                 f"{tuple(mesh.mesh_dim_names or ())}")
+            if tuple(mesh.shape) != tuple(shape):
+                raise ValueError(f"checkpoint mesh grid {tuple(shape)} does not match the provided mesh grid "
+                                 f"{tuple(mesh.shape)}")
+        else:
+            import torch.distributed as dist
+
+            from ..parallel.mesh import make_mesh
+
+            need = int(np.prod(shape))
+            world = dist.get_world_size() if dist.is_initialized() else 1
+            if world != need:
+                seen = f"only {world} are visible" if world < need else \
+                    f"this process's world has {world} and a mesh spans the whole world"
+                raise ValueError(f"checkpoint was saved on a {tuple(shape)} device mesh ({need} devices) but "
+                                 f"{seen}; pass load_checkpoint(..., mesh=...) to rebind explicitly")
+            mesh = make_mesh(None, names, shape, device=self._device)
+        self._meshes[pid] = mesh
+        return mesh
+
     def persistent_load(self, pid):
+        if pid[0] == "mesh" and len(pid) == 3:
+            return self._bind_mesh(pid)
+        if pid[0] == "dtensor" and len(pid) == 4 and self._arrays is not None:
+            if pid not in self._loaded:
+                self._loaded[pid] = self._load_dtensor(*pid[1:])
+            return self._loaded[pid]
         kind, index = pid
         if kind not in ("tensor", "ndarray") or self._arrays is None:
             raise pickle.UnpicklingError(f"unknown persistent id {pid!r}")
@@ -119,25 +201,48 @@ class _RestrictedUnpickler(pickle.Unpickler):
         return self._loaded[pid]
 
 
+    def _load_dtensor(self, index, placements, mesh_pid):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        from ..parallel._comm import mesh_axis
+
+        mesh = self._bind_mesh(mesh_pid)
+        whole = torch.from_numpy(self._arrays[f"arr_{index}"]).to(config.device(self._device))
+        local = whole
+        for name, p in zip(mesh.mesh_dim_names, placements):
+            if p == "S0":
+                ax = mesh_axis(mesh, name)
+                b = whole.shape[0] // ax.size
+                local = whole[ax.rank * b:(ax.rank + 1) * b].contiguous()
+        kinds = [Shard(0) if p == "S0" else Replicate() for p in placements]
+        return DTensor.from_local(local, mesh, kinds, run_check=False, shape=whole.shape, stride=whole.stride())
+
+
 def save_checkpoint(path: str, obj: Any) -> None:
-    """Write any model, fit, chain or other object of the port to ``path``."""
+    """Write any model, fit, chain or other object of the port to ``path``.
+    An object holding DTensors is saved by every rank of their mesh, each
+    writing ``path`` whole (a temporary file renamed into place)."""
     graph = io.BytesIO()
     pickler = _ArrayPickler(graph)
     pickler.dump(obj)
     arrays = io.BytesIO()
     np.savez(arrays, *pickler.arrays)
     payload = {
-        "version": SERIALIZATION_VERSION,
+        "version": 2 if pickler.used_mesh else 1,
         "objects": graph.getvalue(),
         "arrays": zlib.compress(arrays.getvalue(), level=3),
     }
-    with open(path, "wb") as f:
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
         f.write(MAGIC)
         pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
+    os.replace(tmp, path)
 
 
-def load_checkpoint(path: str, device=None) -> Any:
-    """Restore a checkpoint, its tensors on ``config.device(device)``."""
+def load_checkpoint(path: str, device=None, mesh=None) -> Any:
+    """Restore a checkpoint, its tensors on ``config.device(device)``.
+    ``mesh``: the ``DeviceMesh`` to rebind distributed state onto; by
+    default a mesh of the saved names and shape over the current world."""
     with open(path, "rb") as f:
         magic = f.read(len(MAGIC))
         if magic == JAX_MAGIC:
@@ -150,4 +255,4 @@ def load_checkpoint(path: str, device=None) -> Any:
         raise ValueError(f"checkpoint version {payload['version']} is newer than supported "
                          f"{SERIALIZATION_VERSION}")
     arrays = np.load(io.BytesIO(zlib.decompress(payload["arrays"])), allow_pickle=False)
-    return _RestrictedUnpickler(io.BytesIO(payload["objects"]), arrays, device).load()
+    return _RestrictedUnpickler(io.BytesIO(payload["objects"]), arrays, device, mesh).load()

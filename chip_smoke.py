@@ -58,14 +58,25 @@ f32 log-probs against the per-walker f64 log_likelihood on the card, with
 a TF32 control, and against the per-walker f32 route; walker-steps/s,
 peak memory, launch counts), bench.py's sampler row (N = 1024, 32
 walkers, 64 iterations) and 32 walkers' batched log-probs at N = 28672,
-more than the card holds as one stack, which run in batches that fit.  Any failed check raises.  Each kernel's time is printed
+more than the card holds as one stack, which run in batches that fit.
+The last phases hold the error-free transforms exact on the card, run
+the NLML accuracy modes at N = 28672 (plain, compensated, double-word,
+both: each against the f64 NLML and the f64 NLML of the f32 covariance,
+s/eval, peak memory, a TF32 control; the plain and double-word loops'
+log-det and quadratic term below the f32 NLML's last digit; the f32 sum
+of logs three ways; value+grad at N = 8192 under each mode), and the
+distributed GP (``parallel``) on an NCCL world of one rank at N = 28672
+and on a gloo world of 4 processes sharing the card at N = 8192 (NLML,
+fit + predict, LOO, LOGO, value+grad, the walker-sharded sampler), each
+against the single-process GP on the card.  Any failed check raises.  Each kernel's time is printed
 beside its bound (the least time the card could take for the same work);
 the gram kernels also beside the card's write floor, a ``fill_`` of a
 buffer of the gram's shape.
 ``--profile`` adds a torch.profiler breakdown of one NLML's device time and
 of one value+grad evaluation's, forward and backward apart, of one
-lazy NLML at N = 57344, of one FITC fit, and of one sampler half-step's
-batched evaluation.
+lazy NLML at N = 57344, of one FITC fit, of one sampler half-step's
+batched evaluation, and of one NLML under the plain, double-word and
+compensated modes.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -135,6 +146,19 @@ PHASE_REPS = 3
 N_SAMPLER, W_KERNEL, B_SAMPLER = 8192, 16, 1024
 W_SAMPLER, SAMPLER_ITERATIONS = 32, 16
 N_SAMPLER_BENCH, SAMPLER_BENCH_ITERATIONS = 1024, 64
+# The accuracy modes (config.NLML_COMPENSATED, CHOLESKY_PRECISION =
+# "double_word") at the main path's N and, value+grad, at N_GRAD; the
+# error-free transforms on N_EFT random f32 pairs.  The distributed GP:
+# an NCCL world of one rank at the main path's N, and a gloo world of
+# DIST_WORLD processes sharing the card at N_DIST (a LOGO of N_DIST /
+# CV_GROUP groups, DIST_WALKERS walkers for DIST_ITERATIONS iterations),
+# on a jittered strict grid, unique in f32 (benchmarks/exp_2d_bigN.py):
+# the bench draw repeats a dozen f32 values at N, and the sharded gram's
+# noise compares features by value (a duplicated pair is singular there).
+N_EFT = 1 << 20
+MODE_REPS = 3
+N_DIST, DIST_WORLD, DIST_WALKERS, DIST_ITERATIONS = 8192, 4, 32, 4
+DIST_TIMEOUT = 600  # seconds the gloo world may take before its ranks are killed
 # NVIDIA's data sheet for the H100 SXM: device memory rate, and the FP32
 # rate outside the tensor cores (the panel kernel and the grams use no
 # tensor cores).
@@ -226,6 +250,25 @@ SAMPLER_TOLS = {"f64": 8.2e-6, "per-walker f32": 1.8e-6}
 # per-walker f32 route, gated at the N_SAMPLER gate scaled by N / N_SAMPLER
 # (rounding grows with n) and rounded up: 1.8e-6 x 3.5 -> 1e-5.
 SPLIT_TOL = {"per-walker f32": 1e-5}
+
+# The accuracy modes' f32 NLML at N against the f64 NLML on the card and
+# against the f64 NLML of the f32 covariance ("rounded"), relative: about
+# 10x the first reading on H100 (plain and double-word 9.49e-7 / 1.88e-7,
+# the same f32 value; compensated and both 1.13e-6 / 1.28e-8, the f32
+# result's own rounding), so the TF32 control (5.0e-5) fails them; their
+# value+grad at N_GRAD takes the value+grad phase's gates.  The distributed
+# GP against the single-process GP on the same f32 data on the card, the
+# largest error over the largest single-process entry: on a world of one
+# rank both run the same factorization and solves, bit for bit (read 0;
+# gated at 1e-7, about one f32 ulp); on the gloo world of 4 about 10x the
+# first reading (other block sizes and summation orders).
+MODE_TOLS = {"plain": 9.5e-6, "compensated": 1.2e-5, "double_word": 9.5e-6, "both": 1.2e-5,
+             "plain rounded": 1.9e-6, "compensated rounded": 1.3e-7, "double_word rounded": 1.9e-6,
+             "both rounded": 1.3e-7}
+DIST_ONE_TOLS = {"nlml": 1e-7, "mean": 1e-7, "variance": 1e-7, "loo mean": 1e-7, "loo variance": 1e-7}
+DIST_FOUR_TOLS = {"nlml": 8.9e-6, "mean": 4.6e-5, "variance": 1.8e-4, "loo mean": 2.4e-5, "loo variance": 4.2e-5,
+                  "logo mean": 1.2e-4, "logo covariance": 1.1e-4, "value": 8.9e-6, "gradient": 2.5e-7,
+                  "sampler": 1.1e-7}
 
 SOURCES = {
     "radial_gram": ("albatross_tpu_torch/csrc/radial_gram.cu", "albatross_tpu/ops/pallas_gram.py:81"),
@@ -577,6 +620,11 @@ def check_f64_path(torch, np, pt, _build, model) -> None:
     torch.cuda.synchronize()
     launches = _build.LAUNCHES["panel_cholinv"]
     on_cpu = pt.RegressionDataset.create(x, y, device="cpu", dtype=torch.float64)
+    # the process's first multi-threaded CPU exp can differ from every later
+    # one (ROADMAP.md's watch list: a 1.1e-9 difference in this NLML on an
+    # H100 host, against 4.9e-15 otherwise): the reference is the second
+    # evaluation
+    model.log_likelihood(on_cpu)
     ll_ref = model.log_likelihood(on_cpu).item()
     ref = model.fit(on_cpu).predict(torch.as_tensor(xs)).marginal()
     rel = abs(ll - ll_ref) / abs(ll_ref)
@@ -1811,6 +1859,387 @@ def check_sampler_split(torch, np, pt, _build, card: str) -> dict:
     return counts
 
 
+def check_eft(torch, card: str) -> None:
+    """The error-free transforms on the card: for N_EFT random f32 pairs,
+    a + b == s + e and a b == p + e exactly in f64 (eager launches do not
+    contract a multiply and its add into an FMA); dw_sum of them against
+    the f64 sum."""
+    from albatross_tpu_torch.ops.compensated import dw_sum, two_prod, two_sum
+
+    t0 = time.perf_counter()
+    g = torch.Generator().manual_seed(SEED)
+    a = (1e3 * torch.randn(N_EFT, generator=g)).cuda()
+    b = torch.randn(N_EFT, generator=g).cuda()
+    s, e = two_sum(a, b)
+    sum_bad = int(((s.double() + e.double()) != (a.double() + b.double())).sum())
+    p, e = two_prod(a, b)
+    prod_bad = int(((p.double() + e.double()) != (a.double() * b.double())).sum())
+    h, l = dw_sum(a)
+    exact = a.double().sum().item()
+    dw_err = abs(h.item() + l.item() - exact) / a.double().abs().sum().item()
+    plain_err = abs(a.sum().item() - exact) / a.double().abs().sum().item()
+    torch.cuda.synchronize()
+    print(f"[{card}] EFT canary on {N_EFT} f32 pairs: two_sum inexact {sum_bad}, two_prod inexact {prod_bad}; "
+          f"dw_sum error {dw_err:.3e} (plain f32 sum {plain_err:.3e}) of sum|a|; {time.perf_counter() - t0:.2f} s")
+    if sum_bad or prod_bad or not dw_err <= 1e-12:
+        fail(f"the error-free transforms are not exact on the card: {sum_bad}, {prod_bad}, {dw_err}")
+
+
+def _set_modes(config, compensated: bool, precision) -> None:
+    config.NLML_COMPENSATED = compensated
+    config.CHOLESKY_PRECISION = precision
+
+
+def check_accuracy_modes(torch, np, pt, _build, config, card: str, data, ll_ref: float, args) -> dict:
+    """The NLML accuracy modes at the main path's N (bench model, seed 0,
+    f32): plain, compensated, double-word and both, each against the f64
+    NLML on the card, its s/eval (median of MODE_REPS) and peak memory,
+    with a TF32 control on the most accurate mode; the f32 sum of logs of
+    the factor's diagonal three ways against f64 (is the card's f32 log
+    biased?); value+grad under each mode at N_GRAD.  Returns the modes'
+    launch counts."""
+    from albatross_tpu_torch.ops.blocked_cholesky import blocked_cholesky_cols
+    from albatross_tpu_torch.ops.compensated import accurate_log, blocked_cholesky_dw, dw_sum, two_prod
+    from albatross_tpu_torch.ops.linalg import CholeskyFactor
+    from albatross_tpu_torch.ops.radial_gram import plain_radial_gram
+
+    t0 = time.perf_counter()
+    model = bench_model(pt)
+    modes = {"plain": (False, None), "compensated": (True, None), "double_word": (False, "double_word"),
+             "both": (True, "double_word")}
+    # the f64 NLML of the f32 training covariance itself: what the modes
+    # compute more exactly (the f64 reference's own gram differs from it by
+    # the f32 rounding of each entry, which no mode can undo)
+    cov, fused = model._training_covariance(pt.kernels.as_measurement(data.features), None)
+    L64 = torch.linalg.cholesky(cov.double() + (0.0 if fused else JITTER) * torch.eye(N, dtype=torch.float64,
+                                                                                     device=cov.device))
+    white = torch.linalg.solve_triangular(L64, data.targets.mean.double()[:, None], upper=False)[:, 0]
+    terms64 = {"log-det": 2.0 * torch.log(L64.diagonal()).sum().item(), "quadratic": (white @ white).item()}
+    ll_rounded = -0.5 * (terms64["log-det"] + terms64["quadratic"] + N * math.log(2 * math.pi))
+    del L64, white
+    errors, counts = {}, {}
+    _build.reset_launch_counts()
+    try:
+        for name, mode in modes.items():
+            _set_modes(config, *mode)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = dict(_build.LAUNCHES)
+            ll = model.log_likelihood(data)
+            torch.cuda.synchronize()
+            counts[name] = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+            times = wall_times(torch, lambda: model.log_likelihood(data), MODE_REPS)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            errors[name] = scalar_rel(ll.item(), ll_ref)
+            errors[f"{name} rounded"] = scalar_rel(ll.item(), ll_rounded)
+            print(f"[{card}] NLML N={N} f32 {name}: {ll.item()!r}, rel err vs f64 {errors[name]:.3e}, vs the f64 "
+                  f"NLML of the f32 covariance {errors[f'{name} rounded']:.3e}; "
+                  f"{statistics.median(times):.4f} s/eval (median of {MODE_REPS}; all {times}); peak "
+                  f"{peak:.2f} GiB; launches {counts[name]}")
+        phase_counts = dict(_build.LAUNCHES)
+
+        def both_errors():
+            ll = model.log_likelihood(data).item()
+            return {"both": scalar_rel(ll, ll_ref), "both rounded": scalar_rel(ll, ll_rounded)}
+
+        if args.profile:
+            for name in ("plain", "double_word", "compensated"):
+                _set_modes(config, *modes[name])
+                print_profile(torch, lambda: model.log_likelihood(data), f"NLML N={N} {name}", card, 2)
+            _set_modes(config, *modes["both"])  # the TF32 control's mode
+        print(f"f64 NLML {ll_ref!r}; f64 NLML of the f32 covariance {ll_rounded!r}")
+        check_gates(f"accuracy modes N={N}", errors, MODE_TOLS)
+        check_tf32_control(torch, f"accuracy mode both N={N}", both_errors,
+                           {k: MODE_TOLS[k] for k in ("both", "both rounded")})
+    finally:
+        _set_modes(config, False, None)
+    for name in modes:
+        if counts[name]["radial_gram_diag"] != 1 or counts[name]["panel_cholinv"] != PANELS:
+            fail(f"accuracy mode {name}: launches {counts[name]}")
+
+    # the factorization's own error, below the f32 NLML's last digit: the
+    # log-det and the quadratic term of the plain and the double-word loop,
+    # each reduced in double word and read in f64, on the bench model's
+    # covariance and on a dense, ill-conditioned one (SE with length scale
+    # 5 and a 1e-2 nugget, the JAX package's test of the mode) at N_GRAD
+    def loop_errors(what, K, rhs, ref):
+        for name, factor in (("plain", blocked_cholesky_cols), ("double_word", blocked_cholesky_dw)):
+            diag, white = factor(K, rhs=rhs, assemble=False)
+            got = {"log-det": 2.0 * sum(t.item() for t in dw_sum(*accurate_log(diag))),
+                   "quadratic": sum(t.item() for t in dw_sum(*two_prod(white, white)))}
+            print(f"[{card}] {name} loop, {what}, against the f64 factor of the f32 matrix, relative: "
+                  + ", ".join(f"{k} {abs(got[k] - ref[k]) / abs(ref[k]):.3e}" for k in got))
+
+    loop_errors(f"bench model N={N} f32", cov + (0.0 if fused else JITTER) * torch.eye(N, device=cov.device),
+                data.targets.mean, terms64)
+    x_np, y_np = bench_data(np, N_GRAD, SEED + 2)
+    xd, yd = torch.as_tensor(x_np, device="cuda"), torch.as_tensor(y_np, device="cuda")
+    K = plain_radial_gram(xd, xd, 5.0, 1.0, PROFILE, torch.full((N_GRAD,), 1e-2, device="cuda"))
+    L64 = torch.linalg.cholesky(K.double())
+    white = torch.linalg.solve_triangular(L64, yd.double()[:, None], upper=False)[:, 0]
+    loop_errors(f"SE(5) + 1e-2 I N={N_GRAD} f32", K, yd,
+                {"log-det": 2.0 * torch.log(L64.diagonal()).sum().item(), "quadratic": (white @ white).item()})
+    del K, L64, white
+
+    # the accurate_log question: the f32 factor's diagonal, summed three ways
+    d = CholeskyFactor.factorize(cov, jitter=0.0 if fused else JITTER, assume_symmetric=True).L.diagonal().clone()
+    del cov
+    exact = torch.log(d.double()).sum().item()
+    logs = torch.log(d)
+    ah, al = accurate_log(d)
+    ulp = torch.finfo(torch.float32).eps * torch.log(d.double()).abs().clamp_min(1.0)
+    signed = {"torch.log": (logs.double() - torch.log(d.double())) / ulp,
+              "accurate_log": (ah.double() + al.double() - torch.log(d.double())) / ulp}
+    ways = {"torch.log, f32 sum": logs.sum().item(),
+            "torch.log, double-word sum": sum(t.item() for t in dw_sum(logs)),
+            "accurate_log, double-word sum": sum(t.item() for t in dw_sum(ah, al))}
+    print(f"[{card}] sum of logs of the f32 factor's {N} diagonal entries against f64 ({exact!r}), relative: "
+          + ", ".join(f"{k} {abs(float(v) - exact) / abs(exact):.3e}" for k, v in ways.items()) + "; signed error "
+          "a term: " + "; ".join(f"{k} mean {v.mean().item():+.4f} ulp, std {v.std().item():.4f}, max |.| "
+                                 f"{v.abs().max().item():.4f}" for k, v in signed.items()))
+
+    # value+grad under each mode at N_GRAD, with the value+grad phase's gates
+    x_np, y_np = bench_data(np, N_GRAD, SEED + 2)
+    data_g = pt.RegressionDataset.create(x_np, y_np, dtype=torch.float32)
+    x64 = torch.as_tensor(x_np, dtype=torch.float64, device="cuda")
+    y64 = torch.as_tensor(y_np, dtype=torch.float64, device="cuda")
+    ref = reference_value_grad(torch, model, x64, y64, PROFILE)
+    try:
+        for name in ("compensated", "double_word"):
+            _set_modes(config, *modes[name])
+            value, grad = value_grad(torch, model, data_g)
+            errs = dict(zip(("value", "gradient"), grad_errors(value, grad, ref)))
+            times = wall_times(torch, lambda: value_grad(torch, model, data_g), MODE_REPS)
+            print(f"[{card}] value+grad N={N_GRAD} f32 {name}: {statistics.median(times) * 1e3:.2f} ms/eval "
+                  f"(median of {MODE_REPS}; all {times})")
+            check_gates(f"value+grad N={N_GRAD} {name}", errs, {"value": GRAD_VALUE_REL_TOL,
+                                                                 "gradient": GRAD_REL_TOL})
+    finally:
+        _set_modes(config, False, None)
+    print(f"[{card}] accuracy-modes phase: {time.perf_counter() - t0:.1f} s")
+    return phase_counts
+
+
+def unique_grid(np, n: int, seed: int):
+    """n inputs on [0, 100], one a cell of a strict grid, jittered inside
+    it: unique in f32 (benchmarks/exp_2d_bigN.py); targets as bench_data."""
+    rng = np.random.default_rng(seed)
+    x = ((np.arange(n) + rng.uniform(0.1, 0.9, n)) * (100.0 / n)).astype(np.float32)
+    y = (np.sin(0.3 * x) + 0.1 * rng.standard_normal(n)).astype(np.float32)
+    if len(np.unique(x)) != n:
+        fail(f"the grid inputs repeat an f32 value at n={n}")
+    return x, y
+
+
+def _dist_errors(torch, multi: dict, single: dict) -> dict:
+    return {k: (scalar_rel(multi[k], single[k]) if k in ("nlml", "value") else max_rel(multi[k], single[k]))
+            for k in multi}
+
+
+def check_distributed_one(torch, np, pt, _build, card: str) -> dict:
+    """The distributed GP on an NCCL world of one rank, in this process, at
+    the main path's N: fit + predict of N_TEST points, log_likelihood and
+    fast LOO against the single-process GaussianProcess on the same f32
+    data on the card.  Returns its launch counts."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from albatross_tpu_torch import parallel as par
+    from albatross_tpu_torch.evaluation.cross_validation_utils import held_out_predictions
+    from albatross_tpu_torch.indexing import LeaveOneOutGrouper, group_by
+
+    t0 = time.perf_counter()
+    x_np, y_np = unique_grid(np, N, SEED)
+    print(f"distributed phases: inputs on a jittered strict grid of [0, 100], unique in f32 (the bench draw "
+          f"repeats f32 values; the sharded gram's noise compares features by value)")
+    data = pt.RegressionDataset.create(x_np, y_np, dtype=torch.float32)
+    xs = torch.linspace(0.0, 100.0, N_TEST, device="cuda")
+    kernel = bench_model(pt).covariance_function
+    rendezvous = tempfile.mkdtemp()
+    dist.init_process_group("nccl", init_method=f"file://{rendezvous}/init", world_size=1, rank=0)
+    results, times = {}, {}
+    try:
+        mesh = par.make_mesh()
+        loo_idx = group_by(data, LeaveOneOutGrouper()).indexers()
+        for name, model in (("single", pt.gp_from_covariance(kernel, jitter=JITTER)),
+                            ("multi", par.distributed_gp_from_covariance(kernel, mesh, jitter=JITTER))):
+            _build.reset_launch_counts()
+            t = time.perf_counter()
+            ll = model.log_likelihood(data).item()
+            times[f"{name} nlml first call"] = time.perf_counter() - t
+            counts = dict(_build.LAUNCHES)
+            times[f"{name} nlml"] = statistics.median(wall_times(torch, lambda: model.log_likelihood(data), 2))
+            _build.reset_launch_counts()
+            _build.LAUNCHES.update(counts)  # the counted run: one NLML, one fit + predict
+            t = time.perf_counter()
+            fit = model.fit(data)
+            pred = fit.predict(xs).marginal()
+            torch.cuda.synchronize()
+            times[f"{name} fit + predict"] = time.perf_counter() - t
+            counts = dict(_build.LAUNCHES)
+            t = time.perf_counter()
+            loo = held_out_predictions(fit.fit.train_covariance, data.targets.mean, fit.fit.information, loo_idx,
+                                       pt.MarginalDistribution)
+            torch.cuda.synchronize()
+            times[f"{name} loo"] = time.perf_counter() - t
+            results[name] = {"nlml": ll, "mean": pred.mean, "variance": pred.variance,
+                             "loo mean": loo.means[:, 0], "loo variance": loo.variances[:, 0]}
+            print(f"[{card}] distributed world 1 (NCCL) N={N}, {name}: launches {counts}")
+            del fit, pred, loo
+            torch.cuda.empty_cache()
+        multi_counts = counts
+    finally:
+        dist.destroy_process_group()
+    print(f"[{card}] distributed world 1 N={N} f32 seconds: " + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+    check_gates(f"distributed world 1 N={N} against the single-process GP", _dist_errors(torch, results["multi"],
+                                                                                        results["single"]),
+                DIST_ONE_TOLS)
+    if multi_counts["panel_cholinv"] != 2 * PANELS or multi_counts["radial_gram"] < 3:
+        fail(f"distributed world 1: launches {multi_counts}")
+    print(f"[{card}] distributed world-1 phase: {time.perf_counter() - t0:.1f} s")
+    return multi_counts
+
+
+def _dist_run(torch, np, pt, _build, mesh) -> dict:
+    """One rank's (or the single process's, with ``mesh`` None) run of the
+    gloo phase: NLML, fit + predict, LOO, LOGO, value+grad, the sampler;
+    values on the host, seconds and launch counts."""
+    from albatross_tpu_torch import parallel as par
+    from albatross_tpu_torch.evaluation.cross_validation_utils import held_out_predictions
+    from albatross_tpu_torch.indexing import LeaveOneOutGrouper, group_by
+    from albatross_tpu_torch.samplers import ensemble_sampler_from_model
+
+    x_np, y_np = unique_grid(np, N_DIST, SEED + 5)
+    data = pt.RegressionDataset.create(x_np, y_np, dtype=torch.float32)
+    xs = torch.linspace(0.0, 100.0, N_TEST, device="cuda")
+    kernel = bench_model(pt).covariance_function
+    model = (pt.gp_from_covariance(kernel, jitter=JITTER) if mesh is None
+             else par.distributed_gp_from_covariance(kernel, mesh, jitter=JITTER))
+    out, seconds = {}, {}
+    _build.reset_launch_counts()
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t
+        return value
+
+    out["nlml"] = timed("nlml first call", lambda: model.log_likelihood(data).item())
+    timed("nlml", lambda: model.log_likelihood(data).item())
+    fit = timed("fit + predict", lambda: model.fit(data))
+    pred = fit.predict(xs).marginal()
+    out["mean"], out["variance"] = pred.mean.cpu(), pred.variance.cpu()
+    loo = timed("loo", lambda: held_out_predictions(fit.fit.train_covariance, data.targets.mean, fit.fit.information,
+                                                    group_by(data, LeaveOneOutGrouper()).indexers(),
+                                                    pt.MarginalDistribution))
+    out["loo mean"], out["loo variance"] = loo.means[:, 0].cpu(), loo.variances[:, 0].cpu()
+    groups = {g: np.arange(g * CV_GROUP, (g + 1) * CV_GROUP) for g in range(N_DIST // CV_GROUP)}
+    from albatross_tpu_torch.indexing.grouping import Grouped
+
+    logo = timed("logo", lambda: held_out_predictions(fit.fit.train_covariance, data.targets.mean,
+                                                      fit.fit.information, Grouped(groups), pt.JointDistribution))
+    # one batched form on the single process, one JointDistribution a group from the distributed factor
+    out["logo mean"] = torch.stack([logo[g].mean for g in groups]).cpu()
+    out["logo covariance"] = torch.stack([logo[g].covariance for g in groups]).cpu()
+    value, grad = timed("value+grad", lambda: value_grad(torch, model, data))
+    out["value"], out["gradient"] = value.item(), grad.cpu()
+    chain = timed("sampler", lambda: ensemble_sampler_from_model(
+        pt.gp_from_covariance(kernel, jitter=JITTER), data, DIST_WALKERS, DIST_ITERATIONS, key=SEED,
+        **({} if mesh is None else {"mesh": mesh, "mesh_axis": "data"})))
+    out["sampler"] = torch.as_tensor(chain.log_prob)
+    return {"out": out, "seconds": seconds, "launches": dict(_build.LAUNCHES)}
+
+
+def _dist_rank(rank: int, world: int, rendezvous: str, root: str) -> None:
+    """A rank of the gloo world on the shared card: runs ``_dist_run`` and
+    writes its result, or its traceback, to ``rank<r>.pkl``."""
+    import pickle
+    import traceback
+
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import albatross_tpu_torch as pt
+    from albatross_tpu_torch import _build
+    from albatross_tpu_torch import parallel as par
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{rendezvous}/init", world_size=world, rank=rank)
+    try:
+        result = {"ok": True, **_dist_run(torch, np, pt, _build, par.make_mesh())}
+    except Exception:  # the parent fails with it
+        result = {"ok": False, "error": traceback.format_exc()}
+    with open(f"{rendezvous}/rank{rank}.pkl", "wb") as f:
+        pickle.dump(result, f)
+    dist.destroy_process_group()
+
+
+def check_distributed_four(torch, np, pt, _build, card: str) -> dict:
+    """The distributed GP on a gloo world of DIST_WORLD processes sharing
+    the card at N_DIST: NLML, fit + predict, LOO, a LOGO of 128 groups of
+    64, value+grad and the walker-sharded sampler, each against the
+    single-process run on the card.  The collectives are staged through
+    the host (gloo), so the times are not a multi-GPU time.  Returns the
+    ranks' summed launch counts."""
+    import multiprocessing
+    import pickle
+    import tempfile
+
+    t0 = time.perf_counter()
+    ref = _dist_run(torch, np, pt, _build, None)
+    rendezvous = tempfile.mkdtemp()
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_dist_rank, args=(r, DIST_WORLD, rendezvous, str(Path(__file__).resolve().parent)))
+             for r in range(DIST_WORLD)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + DIST_TIMEOUT
+    for p in procs:
+        p.join(timeout=max(1.0, deadline - time.perf_counter()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    if hung:
+        fail(f"gloo world: ranks {hung} still running after {DIST_TIMEOUT} s")
+    ranks = []
+    for r in range(DIST_WORLD):
+        path = Path(rendezvous) / f"rank{r}.pkl"
+        if not path.exists():
+            fail(f"gloo world: rank {r} wrote no result (exit code {procs[r].exitcode})")
+        with open(path, "rb") as f:
+            res = pickle.load(f)
+        if not res["ok"]:
+            fail(f"gloo world: rank {r} failed:\n{res['error']}")
+        ranks.append(res)
+    for r in ranks[1:]:
+        for k, v in r["out"].items():
+            same = v == ranks[0]["out"][k] if isinstance(v, float) else torch.equal(v, ranks[0]["out"][k])
+            if not same:
+                fail(f"gloo world: rank results differ in {k}")
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    print(f"[{card}] distributed world {DIST_WORLD} (gloo, {DIST_WORLD} processes sharing the card) N={N_DIST}: "
+          f"launches summed over the ranks {launches}; single process {ref['launches']}")
+    print(f"[{card}] distributed world {DIST_WORLD} N={N_DIST} f32 seconds (collectives staged through the host "
+          f"by gloo, not a multi-GPU time): rank 0 " + ", ".join(f"{k} {v:.4f}" for k, v in ranks[0]["seconds"].items())
+          + "; single process " + ", ".join(f"{k} {v:.4f}" for k, v in ref["seconds"].items()))
+    out = dict(ranks[0]["out"])
+    out["sampler"] = out["sampler"].double()
+    refs = dict(ref["out"])
+    refs["sampler"] = refs["sampler"].double()
+    check_gates(f"distributed world {DIST_WORLD} N={N_DIST} against the single-process run",
+                _dist_errors(torch, out, refs), DIST_FOUR_TOLS)
+    if launches["panel_cholinv"] == 0 or launches["radial_gram"] == 0:
+        fail(f"gloo world: the ranks launched no panel or gram kernel: {launches}")
+    print(f"[{card}] distributed world-{DIST_WORLD} phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -2126,6 +2555,12 @@ def main() -> int:
     phase_counts["sampler"] = sampler["launches"]
     phase_counts["sampler_bench"] = sampler["bench_launches"]
     phase_counts["sampler_split"] = sampler["split_launches"]
+    # -- the NLML accuracy modes and the distributed GP ------------------------
+    check_eft(torch, card)
+    phase_counts["accuracy_modes"] = check_accuracy_modes(torch, np, pt, _build, config, card, data, ll_ref_val,
+                                                          args)
+    phase_counts["distributed_one"] = check_distributed_one(torch, np, pt, _build, card)
+    phase_counts["distributed_four"] = check_distributed_four(torch, np, pt, _build, card)
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

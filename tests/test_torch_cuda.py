@@ -737,3 +737,79 @@ def test_sampler_chain_on_cuda(cuda):
     data = pt.RegressionDataset.create(x, y, device=cuda, dtype=torch.float32)
     chain = ensemble_sampler_from_model(pt.gp_from_covariance(kernel, jitter=1e-5), data, 8, 5, key=2)
     assert chain.params.shape == (6, 8, 3) and np.isfinite(chain.log_prob).all()
+
+
+def test_error_free_transforms_are_exact_on_cuda(cuda):
+    """two_sum, two_prod and dw_sum on the card: eager launches do not
+    contract a multiply and its add into an FMA, so in f64 a + b == s + e
+    and a b == p + e exactly, and the double-word sum of f32 values is
+    exact to f64 rounding."""
+    from albatross_tpu_torch.ops.compensated import dw_sum, two_prod, two_sum
+
+    g = torch.Generator().manual_seed(5)
+    a = (1e3 * torch.randn(1 << 20, generator=g)).to(cuda)
+    b = torch.randn(1 << 20, generator=g).to(cuda)
+    s, e = two_sum(a, b)
+    assert torch.equal(s.double() + e.double(), a.double() + b.double())
+    p, e = two_prod(a, b)
+    assert torch.equal(p.double() + e.double(), a.double() * b.double())
+    h, l = dw_sum(a)
+    exact = a.double().sum().item()
+    assert abs(h.item() + l.item() - exact) <= 1e-12 * a.double().abs().sum().item()
+
+
+@pytest.mark.parametrize("modes", [{"NLML_COMPENSATED": True}, {"CHOLESKY_PRECISION": "double_word"},
+                                   {"NLML_COMPENSATED": True, "CHOLESKY_PRECISION": "double_word"}])
+def test_accuracy_modes_on_cuda_match_cpu_f64(cuda, modes, monkeypatch):
+    """Each accuracy mode's f32 log_likelihood on the card against the CPU
+    f64 one at n = 3072 (3 panels of 1024 through the panel kernel), and
+    its value+grad at f64 on the card against the CPU's."""
+    rng = np.random.default_rng(12)
+    n = 3072
+    x = np.sort(rng.uniform(0, 100, n))
+    y = np.sin(0.3 * x) + 0.1 * rng.standard_normal(n)
+    kernel = pt.SquaredExponential(0.5, 1.0) + pt.measurement_only(pt.IndependentNoise(0.3, assume_unique=True))
+    model = pt.gp_from_covariance(kernel, jitter=1e-4)
+    for k, v in modes.items():
+        monkeypatch.setattr(config, k, v)
+    ref = model.log_likelihood(pt.RegressionDataset.create(x, y, device="cpu", dtype=torch.float64)).item()
+    _build.reset_launch_counts()
+    got = model.log_likelihood(pt.RegressionDataset.create(x, y, device=cuda, dtype=torch.float32)).item()
+    assert abs(got - ref) / abs(ref) < 1e-5
+    assert _build.LAUNCHES["panel_cholinv"] == 3 and _build.LAUNCHES["radial_gram_diag"] == 1
+
+    def value_grad(device):
+        data = pt.RegressionDataset.create(x, y, device=device, dtype=torch.float64)
+        v = model.get_tunable_parameters().values.clone().requires_grad_(True)
+        value = -model.set_tunable_params(v).log_likelihood(data)
+        return value.item(), torch.autograd.grad(value, v)[0]
+
+    (v_cpu, g_cpu), (v_gpu, g_gpu) = value_grad("cpu"), value_grad(cuda)
+    assert v_gpu == pytest.approx(v_cpu, rel=1e-9)
+    torch.testing.assert_close(g_gpu.cpu(), g_cpu, rtol=1e-8, atol=1e-8 * g_cpu.abs().max().item())
+
+
+def test_distributed_gp_on_a_world_of_one_nccl_rank(cuda, tmp_path):
+    """The distributed GP on an NCCL world of one rank: fit, predict and
+    log_likelihood equal the single-process GP's on the card, f64."""
+    import torch.distributed as dist
+
+    from albatross_tpu_torch import parallel as par
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'rendezvous'}", world_size=1, rank=0)
+    try:
+        mesh = par.make_mesh()
+        rng = np.random.default_rng(4)
+        x = np.sort(rng.uniform(0, 10, 512))
+        y = np.sin(x) + 0.1 * rng.standard_normal(512)
+        data = pt.RegressionDataset.create(x, y, device=cuda, dtype=torch.float64)
+        kernel = pt.SquaredExponential(1.5, 1.0) + pt.measurement_only(pt.IndependentNoise(0.2))
+        xs = torch.linspace(0.5, 9.5, 64, dtype=torch.float64, device=cuda)
+        multi = par.distributed_gp_from_covariance(kernel, mesh, jitter=1e-8)
+        single = pt.gp_from_covariance(kernel, jitter=1e-8)
+        p8, p1 = (m.fit(data).predict(xs).marginal() for m in (multi, single))
+        torch.testing.assert_close(p8.mean, p1.mean, rtol=1e-9, atol=1e-12)
+        torch.testing.assert_close(p8.variance, p1.variance, rtol=1e-9, atol=1e-12)
+        assert multi.log_likelihood(data).item() == pytest.approx(single.log_likelihood(data).item(), rel=1e-10)
+    finally:
+        dist.destroy_process_group()

@@ -35,7 +35,7 @@ def test_import_leaves_jax_out():
 
 
 @pytest.mark.parametrize("package", ["core", "evaluation", "tuning", "indexing", "kernels", "stats", "models",
-                                     "samplers", "serialize", "utils"])
+                                     "samplers", "serialize", "utils", "ops"])
 def test_every_jax_name_has_a_counterpart(package):
     """Each name a ported package of the JAX package exports exists in the
     port's package of the same path."""
@@ -44,6 +44,38 @@ def test_every_jax_name_has_a_counterpart(package):
     exported = getattr(albatross_tpu, package).__all__
     missing = [name for name in exported if not hasattr(getattr(pt, package), name)]
     assert not missing, missing
+
+
+# The JAX package's config knobs that pick between XLA and a Pallas kernel
+# or a bf16 product scheme on the TPU; the port always runs its
+# hand-written kernels with full f32 products (config's docstring).
+TPU_ONLY_CONFIG = {"USE_PALLAS_GRAM", "PALLAS_GRAM_MIN_ELEMENTS", "PALLAS_GRAM_AUTO_MIN_D", "pallas_gram_enabled",
+                   "PANEL_FACTORIZER", "DW_DOT_ALGORITHM", "CHOLESKY_TRAILING_BF16"}
+# parallel's 2-D tile layout and distributed sparse GP, still to port
+PENDING_PARALLEL = {"cholesky2d", "sparse", "DistributedCholesky2D", "distributed_cholesky_2d",
+                    "distributed_inverse_blocks_2d", "distributed_inverse_diagonal_2d",
+                    "distributed_log_determinant_2d", "distributed_solve_2d", "distributed_sqrt_solve_2d",
+                    "distributed_tri_inverse_2d", "sharded_gram_2d", "DistributedSparseGaussianProcessRegression",
+                    "distributed_sparse_gp_from_covariance", "distributed_tall_qr"}
+
+
+def test_config_has_every_knob_but_the_tpu_only_ones():
+    import types
+
+    import albatross_tpu
+
+    names = {n for n in dir(albatross_tpu.config) if not n.startswith("_")
+             and not isinstance(getattr(albatross_tpu.config, n), types.ModuleType)}
+    missing = {n for n in names if not hasattr(config, n)}
+    assert missing == TPU_ONLY_CONFIG, missing
+    assert not any(hasattr(config, n) for n in TPU_ONLY_CONFIG)
+
+
+def test_parallel_has_the_1d_names_and_only_the_2d_and_sparse_ones_pending():
+    import albatross_tpu
+
+    missing = {n for n in albatross_tpu.parallel.__all__ if not hasattr(pt.parallel, n)}
+    assert missing == PENDING_PARALLEL, missing ^ PENDING_PARALLEL
 
 
 def test_f32_matmul_precision_is_highest():

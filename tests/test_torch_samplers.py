@@ -495,11 +495,12 @@ def test_initial_params_from_jitter():
 
 
 def test_sampler_routes_and_refusals(monkeypatch):
-    """A mesh raises; at or above CHOLESKY_FUSED_MIN_N the batched route
+    """A mesh without the named axis raises (tests/test_torch_parallel.py
+    runs the walker-sharded chain); at or above CHOLESKY_FUSED_MIN_N the batched route
     refuses; a sparse GP and a safe-factorization GP take the per-walker
     loop and equal their log_likelihood."""
     model, data = _posterior_problem(np.random.default_rng(6), 20)
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(ValueError, match="no axis 'chain'"):
         ensemble_sampler_from_model(model, data, 4, 2, key=0, mesh=object())
     walkers = initial_params_from_jitter(1, model.get_tunable_parameters().values, 4)
     monkeypatch.setattr(config, "CHOLESKY_FUSED_MIN_N", 16)
