@@ -5,6 +5,7 @@ registration: a ``Module`` is a plain object whose ``Parameter``
 attributes (keyed by attribute name) and child ``Module``s (also inside
 tuples) are discovered by ``get_params()``, joined earlier-wins as the
 reference's ``map_join`` does.  Setters return a shallow copy.
+``insights`` is a string map for run metadata beside the parameters.
 """
 
 from __future__ import annotations
@@ -20,11 +21,25 @@ class Module(ParameterHandlingMixin):
 
     def _replace(self, **updates) -> "Module":
         obj = copy.copy(self)
+        if "_insights" in self.__dict__:  # the copy shares the map, as the reference's does
+            object.__setattr__(obj, "_insights", self.__dict__["_insights"])
         for key, value in updates.items():
             if key not in self.__dict__:
                 raise AttributeError(f"{type(self).__name__} has no field {key}")
             object.__setattr__(obj, key, value)
         return obj
+
+    @property
+    def insights(self) -> Dict[str, str]:
+        """Mutable string map for run metadata, created on first use; not
+        model state, so never tuned, differentiated or saved in a
+        checkpoint (the reference keeps it out of the pytree)."""
+        if "_insights" not in self.__dict__:
+            object.__setattr__(self, "_insights", {})
+        return self.__dict__["_insights"]
+
+    def __getstate__(self):
+        return {k: v for k, v in self.__dict__.items() if k != "_insights"}
 
     def _own_params(self) -> Dict[str, Parameter]:
         return {

@@ -149,6 +149,40 @@ def _rows(features, start: int, stop: int):
     return features[start:stop]
 
 
+def _residual_factor(kernel, features, target_var, P, sizes, nugget):
+    """A = blockdiag(K_ff - Q_ff) + nugget over ``features`` (rows in group
+    order, ``sizes`` the groups', None for FITC), Q_ff = P^T P, factored:
+    a DiagonalCholesky when every group is one point, else a
+    BlockDiagonalCholesky."""
+    if sizes is None or all(s == 1 for s in sizes):
+        # FITC: A is diagonal.  The residual k - q is ~0 where the
+        # inducing set covers a training point and can round a few ulps
+        # negative in f32; clamp only rounding-scale negatives (window
+        # 1e-3 of the magnitudes: P carries K_uu's solve error, ~kappa
+        # eps), so a genuinely indefinite residual still surfaces as NaN.
+        k_diag = kernel.diag(as_measurement(features))
+        if target_var is not None:
+            k_diag = k_diag + target_var
+        q_diag = torch.sum(P * P, dim=0)
+        raw = k_diag - q_diag
+        scale = k_diag + q_diag
+        raw = torch.where((raw < 0) & (raw >= -1e-3 * scale), torch.zeros_like(raw), raw)
+        return DiagonalCholesky(torch.sqrt(raw + nugget))
+    # PITC: A_g = K_g - Q_g + nugget per group, identity-padded to one
+    # size and factored by one batched Cholesky
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).tolist()
+    blocks = []
+    for start, stop in zip(offsets[:-1], offsets[1:]):
+        Kg = kernel(as_measurement(_rows(features, start, stop)))
+        if target_var is not None:
+            Kg = Kg + torch.diag(target_var[start:stop])
+        P_cols = P[:, start:stop]
+        Ag = Kg - P_cols.T @ P_cols
+        blocks.append(Ag + nugget * torch.eye(stop - start, dtype=Kg.dtype, device=Kg.device))
+    stacked, block_sizes = pad_blocks(blocks)
+    return BlockDiagonalCholesky(cholesky(stacked), block_sizes)
+
+
 class SparseGaussianProcessRegression(ModelBase):
     """FITC / PITC sparse GP; ``grouper`` picks the blocks of A (default
     FITC), ``inducing_point_strategy`` the inducing features."""
@@ -196,53 +230,33 @@ class SparseGaussianProcessRegression(ModelBase):
         values = indexers.values()
         return np.concatenate(values), [len(idx) for idx in values]
 
-    def _compute_internal_components(self, inducing_features, features, targets: MarginalDistribution):
-        """(A's factorization, K_uu's, K_fu, y - m(X)), rows in group
-        order."""
+    def _in_group_order(self, features, targets: MarginalDistribution):
+        """(features, target mean, target variance, group sizes) with the
+        rows in group order; sizes None for FITC in the training order."""
         order, sizes = self._group_order(features)
         reordered, target_mean, target_var = features, targets.mean, targets.variance
         if order is not None:
             idx = torch.as_tensor(order, device=target_mean.device)
             reordered, target_mean = subset_features(features, idx), target_mean[idx]
             target_var = None if target_var is None else target_var[idx]
-        measurements = as_measurement(reordered)
+        return reordered, target_mean, target_var, sizes
 
-        K_fu = self._cross_covariance(measurements, inducing_features)
+    def _inducing_factor(self, inducing_features) -> CholeskyFactor:
+        """K_uu + inducing nugget, factored."""
         K_uu = self.covariance_function(inducing_features)
         K_uu = K_uu + self.inducing_nugget.value * torch.eye(K_uu.shape[0], dtype=K_uu.dtype, device=K_uu.device)
-        K_uu_chol = CholeskyFactor.factorize(K_uu)
+        return CholeskyFactor.factorize(K_uu)
+
+    def _compute_internal_components(self, inducing_features, features, targets: MarginalDistribution):
+        """(A's factorization, K_uu's, K_fu, y - m(X)), rows in group
+        order."""
+        reordered, target_mean, target_var, sizes = self._in_group_order(features, targets)
+        K_fu = self._cross_covariance(as_measurement(reordered), inducing_features)
+        K_uu_chol = self._inducing_factor(inducing_features)
         P = K_uu_chol.sqrt_solve(K_fu.T)  # Q_ff = P^T P
 
-        if sizes is None or all(s == 1 for s in sizes):
-            # FITC: A is diagonal.  The residual k - q is ~0 where the
-            # inducing set covers a training point and can round a few ulps
-            # negative in f32; clamp only rounding-scale negatives (window
-            # 1e-3 of the magnitudes: P carries K_uu's solve error, ~kappa
-            # eps), so a genuinely indefinite residual still surfaces as NaN.
-            k_diag = self.covariance_function.diag(measurements)
-            if target_var is not None:
-                k_diag = k_diag + target_var
-            q_diag = torch.sum(P * P, dim=0)
-            raw = k_diag - q_diag
-            scale = k_diag + q_diag
-            raw = torch.where((raw < 0) & (raw >= -1e-3 * scale), torch.zeros_like(raw), raw)
-            A_chol = DiagonalCholesky(torch.sqrt(raw + self.measurement_nugget.value))
-        else:
-            # PITC: A_g = K_g - Q_g + nugget per group, identity-padded to one
-            # size and factored by one batched Cholesky
-            offsets = np.concatenate([[0], np.cumsum(sizes)]).tolist()
-            blocks = []
-            for start, stop in zip(offsets[:-1], offsets[1:]):
-                Kg = self.covariance_function(as_measurement(_rows(reordered, start, stop)))
-                if target_var is not None:
-                    Kg = Kg + torch.diag(target_var[start:stop])
-                P_cols = P[:, start:stop]
-                Ag = Kg - P_cols.T @ P_cols
-                blocks.append(Ag + self.measurement_nugget.value * torch.eye(stop - start, dtype=Kg.dtype,
-                                                                             device=Kg.device))
-            stacked, block_sizes = pad_blocks(blocks)
-            A_chol = BlockDiagonalCholesky(cholesky(stacked), block_sizes)
-
+        A_chol = _residual_factor(self.covariance_function, reordered, target_var, P, sizes,
+                                  self.measurement_nugget.value)
         y = self.mean_function.remove_from(reordered, target_mean)
         return A_chol, K_uu_chol, K_fu, y
 

@@ -147,15 +147,23 @@ def _panel_chol_inverse(Akk: torch.Tensor, sub: int = DEFAULT_PANEL_SUB):
     return U.mT, Wu.mT
 
 
-def blocked_cholesky(K: torch.Tensor, block_size: int | None = None, rhs=None):
-    """Lower Cholesky factor (and L^-1 rhs when ``rhs`` is given).
+def blocked_cholesky(K: torch.Tensor, block_size: int | None = None, use_inverse: bool = True, rhs=None,
+                     panel_sub: int | str | None = "auto"):
+    """Lower Cholesky factor (and L^-1 rhs when ``rhs`` is given), in the
+    JAX package's argument order.
 
     A single panel (n <= block size) is factored by torch.linalg.cholesky;
-    larger matrices go through the column-panel loop."""
+    larger matrices go through the column-panel loop, whose panels give
+    their inverse with their factor (the panel kernel on CUDA f32).  On the
+    plain panel path ``use_inverse=False`` or ``panel_sub=None`` inverts
+    each panel by one exact triangular solve, the reference's solve route;
+    ``"auto"`` composes it from ``DEFAULT_PANEL_SUB`` blocks."""
     n = K.shape[0]
     b = block_size if block_size is not None else default_block_size(n, K.device, K.dtype)
     if n > b:
-        return blocked_cholesky_cols(K, block_size=b, rhs=rhs)
+        sub = n if not use_inverse or panel_sub is None else \
+            DEFAULT_PANEL_SUB if panel_sub == "auto" else int(panel_sub)
+        return blocked_cholesky_cols(K, block_size=b, rhs=rhs, panel_sub=sub)
     L = cholesky(K)
     if rhs is None:
         return L

@@ -67,11 +67,14 @@ def dw_add(xh, xl, yh, yl):
     return two_sum(vh, w)
 
 
-def dw_sum(hi, lo=None, dim: int = -1):
-    """Pairwise double-word sum along ``dim``: (hi, lo) per slice, error
-    O(eps^2), from a log-depth tree of vectorized two_sums."""
-    hi = torch.movedim(torch.as_tensor(hi), dim, -1)
-    lo = torch.zeros_like(hi) if lo is None else torch.movedim(torch.as_tensor(lo), dim, -1)
+def dw_sum(hi, lo=None, axis: int = -1, *, dim: int | None = None):
+    """Pairwise double-word sum along ``axis`` (``dim`` is torch's name for
+    it): (hi, lo) per slice, error O(eps^2), from a log-depth tree of
+    vectorized two_sums."""
+    if dim is not None:
+        axis = dim
+    hi = torch.movedim(torch.as_tensor(hi), axis, -1)
+    lo = torch.zeros_like(hi) if lo is None else torch.movedim(torch.as_tensor(lo), axis, -1)
     n = hi.shape[-1]
     npad = 1 << max(0, math.ceil(math.log2(n))) if n > 1 else 1
     if npad != n:  # zeros are exact under two_sum
@@ -105,7 +108,7 @@ def dw_matvec(K: torch.Tensor, v: torch.Tensor, chunk: int = 1024):
     hs, ls = [], []
     for r0 in range(0, n, chunk):
         p, e = two_prod(K[r0:r0 + chunk], v[None, :])
-        h, l = dw_sum(p, e, dim=1)
+        h, l = dw_sum(p, e, axis=1)
         hs.append(h)
         ls.append(l)
     return torch.cat(hs), torch.cat(ls)

@@ -26,6 +26,18 @@ is an all-reduce of a zero-padded buffer (as the JAX package's masked
 ``psum``): NCCL and gloo, on CPU and CUDA tensors, take ``all_reduce``,
 and a sum of one value and zeros is exact.  On a world of one rank every
 collective is skipped.
+
+The 2-D tile layout runs the same Functions over the two dimension groups
+of a 2-D mesh: a value may vary over the row group, the column group, both
+or neither, and ``all_reduce_sum``, ``vary``, ``zeros`` and ``tie`` take one
+axis or a sequence of axes (applied in that order; ``vary``'s backward
+sums in the reverse order).  ``vary`` goes exactly where a value that is
+the same along an axis first meets one that varies along it, as JAX's
+varying-axes inference inserts ``pvary``: a rank-dependent slice or mask,
+or arithmetic with a varying value.  The tile code keeps the graph the
+same on every rank (``torch.where`` over a rank's ownership, never a
+Python branch, while autograd records), so every rank of each group
+reaches the same backward collectives in the same order.
 """
 
 from __future__ import annotations
@@ -120,14 +132,30 @@ class _Tie(torch.autograd.Function):
         return (g, *(torch.zeros(s, dtype=t, device=d) for s, t, d in ctx.metas))
 
 
-def all_reduce_sum(x: torch.Tensor, ax: Axis) -> torch.Tensor:
-    """The sum over the axis' ranks of each rank's ``x`` (replicated)."""
-    return x if ax.size == 1 else _AllReduceSum.apply(x, ax)
+def _axes(ax) -> tuple:
+    return (ax,) if isinstance(ax, Axis) else tuple(ax)
 
 
-def vary(x: torch.Tensor, ax: Axis) -> torch.Tensor:
-    """``x``, replicated, marked as entering this rank's own rows."""
-    return x if ax.size == 1 else _Vary.apply(x, ax)
+def _alone(ax) -> bool:
+    return all(a.size == 1 for a in _axes(ax))
+
+
+def all_reduce_sum(x: torch.Tensor, ax) -> torch.Tensor:
+    """The sum over the axis' ranks of each rank's ``x`` (replicated over
+    the axis); over each of a sequence of axes in turn."""
+    for a in _axes(ax):
+        if a.size > 1:
+            x = _AllReduceSum.apply(x, a)
+    return x
+
+
+def vary(x: torch.Tensor, ax) -> torch.Tensor:
+    """``x``, replicated over the axis (or each of a sequence of axes),
+    marked as entering this rank's own share of the computation."""
+    for a in _axes(ax):
+        if a.size > 1:
+            x = _Vary.apply(x, a)
+    return x
 
 
 def gather_rows(x, ax: Axis, b: int, first: int = 0) -> torch.Tensor:
@@ -139,21 +167,29 @@ def gather_rows(x, ax: Axis, b: int, first: int = 0) -> torch.Tensor:
     return _GatherRows.apply(x, ax, first, b)
 
 
-def zeros(shape, like: torch.Tensor, anchors, ax: Axis) -> torch.Tensor:
+def gather_cols(x: torch.Tensor, ax: Axis) -> torch.Tensor:
+    """The column blocks of every rank of the axis side by side (JAX's
+    tiled ``all_gather`` along axis 1), on every rank."""
+    if ax.size == 1:
+        return x
+    return _GatherRows.apply(x.mT, ax, 0, x.shape[1]).mT
+
+
+def zeros(shape, like: torch.Tensor, anchors, ax) -> torch.Tensor:
     """Zeros of ``shape`` (``like``'s dtype and device) standing in for a
     block another rank computes from ``anchors``: when any anchor requires
     grad, so does the result, through a node whose backward gives each
     anchor a zero cotangent."""
     anchors = [a for a in anchors if a is not None and a.requires_grad]
-    if ax.size == 1 or not anchors or not torch.is_grad_enabled():
+    if _alone(ax) or not anchors or not torch.is_grad_enabled():
         return like.new_zeros(shape)
     return _Zeros.apply(tuple(shape), like, *anchors)
 
 
-def tie(out: torch.Tensor, deps, ax: Axis) -> torch.Tensor:
+def tie(out: torch.Tensor, deps, ax) -> torch.Tensor:
     """``out``, with a zero cotangent for each of ``deps`` that requires
     grad, so that their backward collectives run on this rank too."""
     deps = [d for d in deps if d is not None and d.requires_grad]
-    if ax.size == 1 or not deps or not torch.is_grad_enabled():
+    if _alone(ax) or not deps or not torch.is_grad_enabled():
         return out
     return _Tie.apply(out, *deps)

@@ -1,18 +1,18 @@
 """Mesh-distributed exact GP: fit, predict, NLML, cross-validation, update.
 
-Counterpart of ``albatross_tpu.parallel.gp``, 1-D row layout: the
-pipeline is
+Counterpart of ``albatross_tpu.parallel.gp``: the pipeline is
 
-    sharded gram (gram.py) -> distributed blocked Cholesky (cholesky.py)
-    -> block-substitution solves -> predictions / NLML
+    sharded gram (gram.py) -> distributed blocked Cholesky (cholesky.py,
+    or cholesky2d.py) -> distributed solves -> predictions / NLML
 
-with every rank holding its rows of the covariance and of the factor.
-``DistributedCholesky`` offers the dense ``CholeskyFactor``'s surface
-(solve, sqrt_solve, log_determinant, inverse_diagonal, inverse_blocks),
-each result replicated, so prediction, fast LOO / LOGO
-(``held_out_predictions``) and ``update`` (a ``BlockSymmetric`` over the
-sharded factor) run the single-process code unchanged.  The 2-D tile
-layout (``col_axis``) is not ported yet.
+with every rank holding its rows (the 1-D row layout) or its tile (the
+2-D layout, ``col_axis``: N^2/(R C) entries a rank) of the covariance and
+of the factor.  ``DistributedCholesky`` and ``DistributedCholesky2D`` offer
+the dense ``CholeskyFactor``'s surface (solve, sqrt_solve,
+log_determinant, inverse_diagonal, inverse_blocks), each result
+replicated, so prediction, fast LOO / LOGO (``held_out_predictions``) and
+``update`` (a ``BlockSymmetric`` over the sharded factor) run the
+single-process code unchanged.
 """
 
 from __future__ import annotations
@@ -35,7 +35,15 @@ from .cholesky import (
     distributed_solve,
     distributed_sqrt_solve,
 )
-from .gram import sharded_gram
+from .cholesky2d import (
+    distributed_cholesky_2d,
+    distributed_inverse_blocks_2d,
+    distributed_inverse_diagonal_2d,
+    distributed_log_determinant_2d,
+    distributed_solve_2d,
+    distributed_sqrt_solve_2d,
+)
+from .gram import sharded_gram, sharded_gram_2d
 
 LOG_2PI = math.log(2.0 * math.pi)
 
@@ -65,6 +73,32 @@ class DistributedCholesky:
         return distributed_inverse_blocks(self.L, indices_groups, self.mesh, self.axis)
 
 
+@dataclasses.dataclass(frozen=True)
+class DistributedCholesky2D:
+    """Tile-sharded Cholesky factor (a DTensor tiled over ``row_axis`` and
+    ``col_axis``) bound to its mesh: N^2/(R C) factor entries a rank."""
+
+    L: torch.Tensor
+    mesh: object
+    row_axis: str = "data"
+    col_axis: str = "model"
+
+    def solve(self, rhs):
+        return distributed_solve_2d(self.L, rhs, self.mesh, self.row_axis, self.col_axis)
+
+    def sqrt_solve(self, rhs):
+        return distributed_sqrt_solve_2d(self.L, rhs, self.mesh, self.row_axis, self.col_axis)
+
+    def log_determinant(self):
+        return distributed_log_determinant_2d(self.L, self.mesh, self.row_axis, self.col_axis)
+
+    def inverse_diagonal(self):
+        return distributed_inverse_diagonal_2d(self.L, self.mesh, self.row_axis, self.col_axis)
+
+    def inverse_blocks(self, indices_groups):
+        return distributed_inverse_blocks_2d(self.L, indices_groups, self.mesh, self.row_axis, self.col_axis)
+
+
 class DistributedGaussianProcess(GaussianProcess):
     """Exact GP whose fit-time linear algebra is mesh-distributed.
 
@@ -72,7 +106,10 @@ class DistributedGaussianProcess(GaussianProcess):
     features, targets and prediction points replicated); each builds and
     factors its own rows of the training covariance.  Prediction math is
     inherited: it only calls ``solve`` on the fit's covariance, which
-    dispatches to the distributed factor."""
+    dispatches to the distributed factor.  ``col_axis`` selects the 2-D
+    tile layout over (``axis``, ``col_axis``); ``panel`` caps its panel
+    width, trading collective rounds for the (N, panel) transient (None:
+    up to the tile width, at most 1024 where the width allows)."""
 
     def __init__(
         self,
@@ -84,26 +121,26 @@ class DistributedGaussianProcess(GaussianProcess):
         panel: Optional[int] = None,
         **kw,
     ):
-        if col_axis is not None:
-            raise NotImplementedError(
-                f"col_axis={col_axis!r} selects the 2-D tile-sharded layout, which is not ported yet "
-                "(ROADMAP.md queue 1 item 7, the 2-D half); pass col_axis=None for the 1-D row layout"
-            )
         super().__init__(covariance, mean, **kw)
         self.mesh = mesh
         self.axis = axis
         self.col_axis = col_axis
         self.panel = panel  # the 2-D layout's panel width; unused by the 1-D layout
 
-    def _sharded_factorize(self, features, target_variance) -> DistributedCholesky:
+    def _sharded_factorize(self, features, target_variance):
         """Sharded training covariance (jitter on its diagonal) and its
-        distributed factor."""
+        distributed factor, in the layout this model was built with."""
         if self.jitter:
             jitter = torch.full((feature_count(features),), self.jitter, **float_like(features))
             target_variance = jitter if target_variance is None else target_variance + jitter
-        K = sharded_gram(self.covariance_function, features, self.mesh, self.axis,
-                         measurement=True, target_variance=target_variance)
-        return DistributedCholesky(distributed_cholesky(K, self.mesh, self.axis), self.mesh, self.axis)
+        if self.col_axis is None:
+            K = sharded_gram(self.covariance_function, features, self.mesh, self.axis,
+                             measurement=True, target_variance=target_variance)
+            return DistributedCholesky(distributed_cholesky(K, self.mesh, self.axis), self.mesh, self.axis)
+        K = sharded_gram_2d(self.covariance_function, features, self.mesh, self.axis, self.col_axis,
+                            measurement=True, target_variance=target_variance)
+        L = distributed_cholesky_2d(K, self.mesh, self.axis, self.col_axis, panel=self.panel)
+        return DistributedCholesky2D(L, self.mesh, self.axis, self.col_axis)
 
     def _fit_impl(self, features, targets: MarginalDistribution) -> GPFit:
         chol = self._sharded_factorize(features, targets.variance)

@@ -5,15 +5,19 @@ Counterpart of ``albatross_tpu.parallel.mesh``: the JAX package's
 a device, and a ``NamedSharding`` the DTensor placements of a named mesh
 dimension.  A mesh needs an initialized process group
 (``torch.distributed.init_process_group``, or ``initialize_multihost``
-under ``torchrun``); it spans the whole world.
+under ``torchrun``); it spans the whole world.  The ranks fill the grid in
+row-major order, as a JAX mesh's devices do.  The group of each mesh
+dimension is created with the world's own backend, so gloo ranks that
+share one card build a 2-D mesh as well as NCCL ranks on their own cards.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import torch
 import torch.distributed as dist
-from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import Replicate, Shard
 
 from .. import config
@@ -55,7 +59,25 @@ def make_mesh(
     device_type = config.device(device).type
     if len(shape) == 1:  # the world's own group, whatever its backend (gloo ranks may share a card)
         return DeviceMesh.from_group(dist.group.WORLD, device_type, mesh_dim_names=tuple(axis_names))
-    return init_device_mesh(device_type, tuple(int(s) for s in shape), mesh_dim_names=tuple(axis_names))
+    return _mesh_of_groups(device_type, tuple(int(s) for s in shape), tuple(axis_names))
+
+
+def _mesh_of_groups(device_type: str, shape: tuple, names: tuple) -> DeviceMesh:
+    """A multi-dimensional mesh whose dimension groups are new groups of
+    the world's backend: for each dimension, every rank joins the creation
+    of each line of ranks along it (``new_group`` is collective over the
+    world) and keeps the line it lies on."""
+    rank, backend = dist.get_rank(), dist.get_backend()
+    layout = torch.arange(dist.get_world_size()).reshape(shape)
+    groups = []
+    for dim, size in enumerate(shape):
+        mine = None
+        for line in layout.movedim(dim, -1).reshape(-1, size).tolist():
+            group = dist.new_group(line, backend=backend)
+            if rank in line:
+                mine = group
+        groups.append(mine)
+    return DeviceMesh.from_group(groups, device_type, mesh=layout, mesh_dim_names=names)
 
 
 def _placements(mesh: DeviceMesh, axis: Optional[str]) -> tuple:

@@ -24,8 +24,9 @@ pickled dict of the version, the object graph and the arrays.
   asks for the CPU.  They load detached (no autograd history is saved).
 * A distributed fit is saved by its mesh's signature, the dimension names
   and shape, never by a process group: each ``DeviceMesh`` becomes a
-  ("mesh", names, shape) id and each ``DTensor`` its whole value (gathered
-  over the mesh, so every rank of the mesh calls ``save_checkpoint``; each
+  ("mesh", names, shape) id and each ``DTensor`` (row-sharded, tiled or
+  replicated) its whole value (gathered over the mesh, so every rank of the
+  mesh calls ``save_checkpoint``; each
   writes the file whole and renames it into place) with its placements.
   ``load_checkpoint(path, mesh=...)`` rebinds them to the given mesh, or,
   without one, to a mesh of the same names and shape over the current
@@ -97,7 +98,7 @@ class _ArrayPickler(pickle.Pickler):
                 self._index[id(obj)] = len(self.arrays)
                 self.arrays.append(_whole(obj).detach().cpu().numpy())
                 self._seen.append(obj)
-            placements = tuple("S0" if p.is_shard(0) else "R" for p in obj.placements)
+            placements = tuple("S0" if p.is_shard(0) else "S1" if p.is_shard(1) else "R" for p in obj.placements)
             return "dtensor", self._index[id(obj)], placements, _mesh_id(obj.device_mesh)
         if isinstance(obj, torch.Tensor):
             kind = "tensor"
@@ -117,18 +118,21 @@ def _mesh_id(mesh) -> tuple:
 
 
 def _whole(t):
-    """A DTensor's whole value on every rank of its mesh: its rows
-    gathered over the mesh dimension it is sharded on."""
-    from ..parallel._comm import gather_rows, mesh_axis
+    """A DTensor's whole value on every rank of its mesh: its rows (and,
+    tiled, its columns) gathered over the mesh dimensions it is sharded
+    on."""
+    from ..parallel._comm import gather_cols, gather_rows, mesh_axis
 
     local = t.to_local()
     names = t.device_mesh.mesh_dim_names
     for name, p in zip(names, t.placements):
-        if p.is_shard(0):
-            with torch.no_grad():
+        with torch.no_grad():
+            if p.is_shard(0):
                 local = gather_rows(local, mesh_axis(t.device_mesh, name), local.shape[0])
-        elif not p.is_replicate():
-            raise ValueError(f"checkpoints hold row-sharded or replicated DTensors, not {t.placements}")
+            elif p.is_shard(1):
+                local = gather_cols(local, mesh_axis(t.device_mesh, name))
+            elif not p.is_replicate():
+                raise ValueError(f"checkpoints hold row-sharded, tiled or replicated DTensors, not {t.placements}")
     return local
 
 
@@ -210,11 +214,12 @@ class _RestrictedUnpickler(pickle.Unpickler):
         whole = torch.from_numpy(self._arrays[f"arr_{index}"]).to(config.device(self._device))
         local = whole
         for name, p in zip(mesh.mesh_dim_names, placements):
-            if p == "S0":
-                ax = mesh_axis(mesh, name)
-                b = whole.shape[0] // ax.size
-                local = whole[ax.rank * b:(ax.rank + 1) * b].contiguous()
-        kinds = [Shard(0) if p == "S0" else Replicate() for p in placements]
+            if p in ("S0", "S1"):
+                ax, dim = mesh_axis(mesh, name), int(p[1])
+                b = whole.shape[dim] // ax.size
+                local = local.narrow(dim, ax.rank * b, b)
+        local = local.contiguous()
+        kinds = [Shard(int(p[1])) if p in ("S0", "S1") else Replicate() for p in placements]
         return DTensor.from_local(local, mesh, kinds, run_check=False, shape=whole.shape, stride=whole.stride())
 
 

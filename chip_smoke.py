@@ -68,7 +68,16 @@ of logs three ways; value+grad at N = 8192 under each mode), and the
 distributed GP (``parallel``) on an NCCL world of one rank at N = 28672
 and on a gloo world of 4 processes sharing the card at N = 8192 (NLML,
 fit + predict, LOO, LOGO, value+grad, the walker-sharded sampler), each
-against the single-process GP on the card.  Any failed check raises.  Each kernel's time is printed
+against the single-process GP on the card; in the same worlds the 2-D
+tile layout, on a (1, 1) mesh at N = 28672 (NLML, fit + predict, LOO; the
+panel kernel on every panel step, times, peak memory) and on a (2, 2)
+mesh of the 4 ranks at N = 8192 (NLML, value+grad, fit + predict, LOO,
+LOGO, an update; each rank's tile and peak memory, and no op writing an
+N x N tensor), and the distributed sparse GP, FITC at N = 131072 with
+4096 inducing points on the NCCL rank (the TSQR's |diag R| against the
+f64 data's) and FITC and PITC at N = 32768 (400 groups, some straddling
+the ranks' rows) with value+grad on the gloo ranks, each against the
+single process.  Any failed check raises.  Each kernel's time is printed
 beside its bound (the least time the card could take for the same work);
 the gram kernels also beside the card's write floor, a ``fill_`` of a
 buffer of the gram's shape.
@@ -87,6 +96,7 @@ script.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -159,6 +169,14 @@ N_EFT = 1 << 20
 MODE_REPS = 3
 N_DIST, DIST_WORLD, DIST_WALKERS, DIST_ITERATIONS = 8192, 4, 32, 4
 DIST_TIMEOUT = 600  # seconds the gloo world may take before its ranks are killed
+# The 2-D tile layout: a (1, 1) ("data", "model") mesh on the NCCL world of
+# one at the main path's N, and a DIST_2D_SHAPE mesh over the same gloo
+# ranks at N_DIST (its update fits the first DIST_UPDATE_FIRST points, then
+# the rest).  The distributed sparse GP: FITC's cell (N_FITC, M_FITC) on
+# the world of one; FITC and PITC at PITC's cell (N_PITC, M_PITC, about
+# 400 groups, which straddle the ranks' rows) in the gloo world.
+DIST_2D_SHAPE = (2, 2)
+DIST_UPDATE_FIRST = 6144
 # NVIDIA's data sheet for the H100 SXM: device memory rate, and the FP32
 # rate outside the tensor cores (the panel kernel and the grams use no
 # tensor cores).
@@ -269,6 +287,23 @@ DIST_ONE_TOLS = {"nlml": 1e-7, "mean": 1e-7, "variance": 1e-7, "loo mean": 1e-7,
 DIST_FOUR_TOLS = {"nlml": 8.9e-6, "mean": 4.6e-5, "variance": 1.8e-4, "loo mean": 2.4e-5, "loo variance": 4.2e-5,
                   "logo mean": 1.2e-4, "logo covariance": 1.1e-4, "value": 8.9e-6, "gradient": 2.5e-7,
                   "sampler": 1.1e-7}
+# The 2-D layout and the distributed sparse GP against the single process
+# on the same f32 data on the card, about 10x their first readings (a
+# reading of 0 gated at 1e-7, about one f32 ulp, as world 1's).  The 2-D
+# factor equals the single process's (the NLML reads 0); predict's 4096
+# and update's 2048 right-hand sides go through W = L^-1 (the JAX
+# package's ``auto`` route from 32), whose f32 explicit inverse reads
+# 3.9e-4 in the variance at N = 28672 and 2.7e-3 in the update's mean.
+# The distributed sparse fit takes v and the NLML from R^-T B^T y in f64
+# where the single process applies Q^T.
+DIST_2D_ONE_TOLS = {"nlml": 1e-7, "mean": 1.1e-4, "variance": 3.9e-3, "loo mean": 7.7e-5, "loo variance": 8.3e-5}
+DIST_2D_FOUR_TOLS = {"nlml": 1e-7, "mean": 4.1e-5, "variance": 5e-4, "loo mean": 3e-5, "loo variance": 4.1e-5,
+                     "logo mean": 2.1e-4, "logo covariance": 2e-4, "value": 1e-7, "gradient": 9.2e-8,
+                     "update mean": 2.7e-2, "update variance": 7.5e-4}
+DIST_SPARSE_ONE_TOLS = {"mean": 9.2e-6, "variance": 6.8e-5, "nlml": 2.9e-5}
+DIST_SPARSE_FOUR_TOLS = {"fitc mean": 9.7e-6, "fitc variance": 1e-7, "fitc nlml": 1.8e-5, "fitc value": 1.8e-5,
+                         "fitc gradient": 2e-5, "pitc mean": 1e-5, "pitc variance": 1e-7, "pitc nlml": 5.1e-5,
+                         "pitc value": 5.1e-5, "pitc gradient": 1.2e-5}
 
 SOURCES = {
     "radial_gram": ("albatross_tpu_torch/csrc/radial_gram.cu", "albatross_tpu/ops/pallas_gram.py:81"),
@@ -2032,15 +2067,40 @@ def unique_grid(np, n: int, seed: int):
 
 
 def _dist_errors(torch, multi: dict, single: dict) -> dict:
-    return {k: (scalar_rel(multi[k], single[k]) if k in ("nlml", "value") else max_rel(multi[k], single[k]))
+    return {k: (scalar_rel(multi[k], single[k]) if isinstance(multi[k], float) else max_rel(multi[k], single[k]))
             for k in multi}
+
+
+def largest_allocation(torch):
+    """A TorchDispatchMode that records the most entries any op writes
+    into new memory (a view of an input, or an in-place result, is none)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Largest(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.largest = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            inputs = {t.untyped_storage().data_ptr() for t in tree_leaves((args, kwargs))
+                      if isinstance(t, torch.Tensor)}
+            for t in tree_leaves(out):
+                if isinstance(t, torch.Tensor) and t.untyped_storage().data_ptr() not in inputs:
+                    self.largest = max(self.largest, t.numel())
+            return out
+
+    return Largest()
 
 
 def check_distributed_one(torch, np, pt, _build, card: str) -> dict:
     """The distributed GP on an NCCL world of one rank, in this process, at
     the main path's N: fit + predict of N_TEST points, log_likelihood and
     fast LOO against the single-process GaussianProcess on the same f32
-    data on the card.  Returns its launch counts."""
+    data on the card, in the 1-D row layout and in the 2-D tile layout on
+    a (1, 1) mesh; then the distributed sparse GP on the same world
+    (``check_sparse_one``).  Returns each phase's launch counts."""
     import tempfile
 
     import torch.distributed as dist
@@ -2058,47 +2118,130 @@ def check_distributed_one(torch, np, pt, _build, card: str) -> dict:
     kernel = bench_model(pt).covariance_function
     rendezvous = tempfile.mkdtemp()
     dist.init_process_group("nccl", init_method=f"file://{rendezvous}/init", world_size=1, rank=0)
-    results, times = {}, {}
+    results, times, counts_by_layout, peaks = {}, {}, {}, {}
     try:
         mesh = par.make_mesh()
+        mesh2d = par.make_mesh(axis_names=("data", "model"), shape=(1, 1))
         loo_idx = group_by(data, LeaveOneOutGrouper()).indexers()
         for name, model in (("single", pt.gp_from_covariance(kernel, jitter=JITTER)),
-                            ("multi", par.distributed_gp_from_covariance(kernel, mesh, jitter=JITTER))):
+                            ("multi", par.distributed_gp_from_covariance(kernel, mesh, jitter=JITTER)),
+                            ("2d", par.distributed_gp_from_covariance(kernel, mesh2d, col_axis="model",
+                                                                      jitter=JITTER))):
             _build.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
             t = time.perf_counter()
             ll = model.log_likelihood(data).item()
             times[f"{name} nlml first call"] = time.perf_counter() - t
+            peaks[f"{name} nlml"] = torch.cuda.max_memory_allocated() / 2**30
             counts = dict(_build.LAUNCHES)
+            nlml_counts = counts
             times[f"{name} nlml"] = statistics.median(wall_times(torch, lambda: model.log_likelihood(data), 2))
             _build.reset_launch_counts()
             _build.LAUNCHES.update(counts)  # the counted run: one NLML, one fit + predict
+            torch.cuda.reset_peak_memory_stats()
             t = time.perf_counter()
             fit = model.fit(data)
             pred = fit.predict(xs).marginal()
             torch.cuda.synchronize()
             times[f"{name} fit + predict"] = time.perf_counter() - t
+            peaks[f"{name} fit + predict"] = torch.cuda.max_memory_allocated() / 2**30
             counts = dict(_build.LAUNCHES)
+            torch.cuda.reset_peak_memory_stats()
             t = time.perf_counter()
             loo = held_out_predictions(fit.fit.train_covariance, data.targets.mean, fit.fit.information, loo_idx,
                                        pt.MarginalDistribution)
             torch.cuda.synchronize()
             times[f"{name} loo"] = time.perf_counter() - t
+            peaks[f"{name} loo"] = torch.cuda.max_memory_allocated() / 2**30
             results[name] = {"nlml": ll, "mean": pred.mean, "variance": pred.variance,
                              "loo mean": loo.means[:, 0], "loo variance": loo.variances[:, 0]}
-            print(f"[{card}] distributed world 1 (NCCL) N={N}, {name}: launches {counts}")
+            print(f"[{card}] distributed world 1 (NCCL) N={N}, {name}: launches in one NLML {nlml_counts}, in "
+                  f"it and one fit + predict {counts}")
+            if name == "2d":
+                tile = fit.fit.train_covariance.L.to_local()
+                print(f"[{card}] distributed world 1 N={N}, 2d: the (1, 1) mesh's tile {tuple(tile.shape)}, "
+                      f"{tile.numel() * tile.element_size() / 2**30:.2f} GiB")
+                check_counts(f"distributed world 1 N={N} 2d log_likelihood", nlml_counts,
+                             {"radial_gram": 1, "radial_gram_diag": 0, "radial_gram_cols": 0,
+                              "panel_cholinv": PANELS})
+                del tile
+            counts_by_layout[name] = counts
             del fit, pred, loo
             torch.cuda.empty_cache()
-        multi_counts = counts
+        sparse_counts = check_sparse_one(torch, np, pt, _build, mesh, card)
     finally:
         dist.destroy_process_group()
     print(f"[{card}] distributed world 1 N={N} f32 seconds: " + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+    print(f"[{card}] distributed world 1 N={N} f32 peak device memory GiB: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in peaks.items()))
     check_gates(f"distributed world 1 N={N} against the single-process GP", _dist_errors(torch, results["multi"],
                                                                                         results["single"]),
                 DIST_ONE_TOLS)
+    check_gates(f"distributed world 1 N={N}, 2-D layout on a (1, 1) mesh, against the single-process GP",
+                _dist_errors(torch, results["2d"], results["single"]), DIST_2D_ONE_TOLS)
+    multi_counts = counts_by_layout["multi"]
     if multi_counts["panel_cholinv"] != 2 * PANELS or multi_counts["radial_gram"] < 3:
         fail(f"distributed world 1: launches {multi_counts}")
+    check_counts(f"distributed world 1 N={N} 2d NLML + fit + predict", counts_by_layout["2d"],
+                 {"radial_gram": 3, "radial_gram_diag": 0, "radial_gram_cols": 0, "panel_cholinv": 2 * PANELS})
     print(f"[{card}] distributed world-1 phase: {time.perf_counter() - t0:.1f} s")
-    return multi_counts
+    return {"distributed_one": multi_counts, "distributed_one_2d": counts_by_layout["2d"],
+            "distributed_sparse_one": sparse_counts}
+
+
+def check_sparse_one(torch, np, pt, _build, mesh, card: str) -> dict:
+    """The distributed sparse GP (FITC) at FITC's cell on the NCCL world of
+    one: fit + predict of N_TEST marginals and log_likelihood against the
+    single-process FITC on the same f32 data on the card; |diag R| of the
+    TSQR of the f32 data's B against the TSQR of the f64 data's.  Returns
+    the distributed run's launch counts."""
+    from albatross_tpu_torch import parallel as par
+
+    x_np, y_np = bench_data(np, N_FITC, SEED + 4)
+    data = pt.RegressionDataset.create(x_np, y_np, dtype=torch.float32)
+    xs = torch.linspace(0.0, 100.0, N_TEST, device="cuda")
+    single = sparse_model(pt, FITC_LS, pt.UniformlySpacedInducingPoints(M_FITC))
+    multi = par.distributed_sparse_gp_from_covariance(single.covariance_function, mesh,
+                                                      inducing_point_strategy=pt.UniformlySpacedInducingPoints(M_FITC))
+    out, times, counts = {}, {}, {}
+    for name, model in (("single", single), ("multi", multi)):
+        _build.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        pred = model.fit(data).predict(xs).marginal()
+        torch.cuda.synchronize()
+        times[f"{name} fit + predict"] = time.perf_counter() - t
+        ll = model.log_likelihood(data).item()
+        counts[name] = dict(_build.LAUNCHES)
+        times[f"{name} peak GiB"] = torch.cuda.max_memory_allocated() / 2**30
+        times[f"{name} nlml"] = statistics.median(wall_times(torch, lambda: model.log_likelihood(data), 2))
+        out[name] = {"mean": pred.mean, "variance": pred.variance, "nlml": ll}
+        del pred
+    print(f"[{card}] distributed sparse FITC world 1 (NCCL) N={N_FITC} M={M_FITC} f32: launches in fit + predict "
+          f"+ log_likelihood {counts['multi']} (single process {counts['single']}); seconds and peaks: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+    check_gates(f"distributed sparse FITC world 1 N={N_FITC} against the single-process FITC",
+                _dist_errors(torch, out["multi"], out["single"]), DIST_SPARSE_ONE_TOLS)
+    if counts["multi"]["radial_gram"] == 0 or counts["multi"]["panel_cholinv"] == 0:
+        fail(f"distributed sparse FITC world 1: no gram or panel kernel launched: {counts['multi']}")
+
+    def whitened(d):
+        u = single.inducing_point_strategy(single.covariance_function, d.features)
+        A_chol, K_uu_chol, K_fu, _ = single._compute_internal_components(u, d.features, d.targets)
+        return A_chol.sqrt_solve(K_fu), K_uu_chol.L.T
+
+    with torch.no_grad():
+        B, tail = whitened(data)
+        diag32 = par.distributed_tall_qr(B, mesh, extra=tail).diagonal()
+        del B, tail
+        data64 = pt.RegressionDataset.create(x_np.astype(np.float64), y_np.astype(np.float64), dtype=torch.float64)
+        B, tail = whitened(data64)
+        diag64 = par.distributed_tall_qr(B, mesh, extra=tail).diagonal()
+        del B, tail
+    print(f"distributed sparse FITC N={N_FITC}: |diag R| of the TSQR (both QRs in f64) of the f32 data's B against "
+          f"the TSQR of the f64 data's: {max_rel(diag32, diag64):.3e}")
+    torch.cuda.empty_cache()
+    return counts["multi"]
 
 
 def _dist_run(torch, np, pt, _build, mesh) -> dict:
@@ -2152,6 +2295,105 @@ def _dist_run(torch, np, pt, _build, mesh) -> dict:
     return {"out": out, "seconds": seconds, "launches": dict(_build.LAUNCHES)}
 
 
+def _dist_run_2d(torch, np, pt, _build, mesh2d) -> dict:
+    """One rank's (or the single process's, with ``mesh2d`` None) run of
+    the 2-D layout on the gloo world: NLML, fit + predict, LOO, LOGO, an
+    update and value+grad on the data of ``_dist_run``; values on the
+    host, seconds, launch counts, the largest tensor an op of the forward
+    calls wrote, the tile's bytes and the peak device memory."""
+    from albatross_tpu_torch import parallel as par
+    from albatross_tpu_torch.evaluation.cross_validation_utils import held_out_predictions
+    from albatross_tpu_torch.indexing import LeaveOneOutGrouper, group_by
+    from albatross_tpu_torch.indexing.grouping import Grouped
+
+    x_np, y_np = unique_grid(np, N_DIST, SEED + 5)
+    data = pt.RegressionDataset.create(x_np, y_np, dtype=torch.float32)
+    first = pt.RegressionDataset.create(x_np[:DIST_UPDATE_FIRST], y_np[:DIST_UPDATE_FIRST], dtype=torch.float32)
+    rest = pt.RegressionDataset.create(x_np[DIST_UPDATE_FIRST:], y_np[DIST_UPDATE_FIRST:], dtype=torch.float32)
+    xs = torch.linspace(0.0, 100.0, N_TEST, device="cuda")
+    kernel = bench_model(pt).covariance_function
+    model = (pt.gp_from_covariance(kernel, jitter=JITTER) if mesh2d is None
+             else par.distributed_gp_from_covariance(kernel, mesh2d, col_axis="model", jitter=JITTER))
+    groups = {g: np.arange(g * CV_GROUP, (g + 1) * CV_GROUP) for g in range(N_DIST // CV_GROUP)}
+    out, seconds = {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t
+        return value
+
+    recorder = largest_allocation(torch)
+    with recorder if mesh2d is not None else contextlib.nullcontext():  # the counted run's forward ops
+        out["nlml"] = timed("nlml first call", lambda: model.log_likelihood(data).item())
+        fit = timed("fit + predict", lambda: model.fit(data))
+        pred = fit.predict(xs).marginal()
+        out["mean"], out["variance"] = pred.mean.cpu(), pred.variance.cpu()
+        loo = timed("loo", lambda: held_out_predictions(fit.fit.train_covariance, data.targets.mean,
+                                                        fit.fit.information,
+                                                        group_by(data, LeaveOneOutGrouper()).indexers(),
+                                                        pt.MarginalDistribution))
+        out["loo mean"], out["loo variance"] = loo.means[:, 0].cpu(), loo.variances[:, 0].cpu()
+        logo = timed("logo", lambda: held_out_predictions(fit.fit.train_covariance, data.targets.mean,
+                                                          fit.fit.information, Grouped(groups),
+                                                          pt.JointDistribution))
+        out["logo mean"] = torch.stack([logo[g].mean for g in groups]).cpu()
+        out["logo covariance"] = torch.stack([logo[g].covariance for g in groups]).cpu()
+        updated = timed("update", lambda: model.fit(first).update(rest))
+        up = updated.predict(xs).marginal()
+        out["update mean"], out["update variance"] = up.mean.cpu(), up.variance.cpu()
+    value, grad = timed("value+grad", lambda: value_grad(torch, model, data))
+    out["value"], out["gradient"] = value.item(), grad.cpu()
+    timed("nlml", lambda: model.log_likelihood(data).item())
+    tile = fit.fit.train_covariance.L.to_local() if mesh2d is not None else fit.fit.train_covariance.L
+    return {"out": out, "seconds": seconds, "launches": dict(_build.LAUNCHES), "largest": recorder.largest,
+            "tile": (tuple(tile.shape), tile.numel() * tile.element_size()),
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def _dist_run_sparse(torch, np, pt, _build, mesh) -> dict:
+    """One rank's (or the single process's, with ``mesh`` None) run of the
+    distributed sparse GP on the gloo world: FITC and PITC (groups by
+    floor(x / PITC_WIDTH), which straddle the ranks' rows) at PITC's cell,
+    fit + predict, log_likelihood and value+grad."""
+    from albatross_tpu_torch import parallel as par
+
+    x_np, y_np = bench_data(np, N_PITC, SEED + 5)
+    data = pt.RegressionDataset.create(x_np, y_np, dtype=torch.float32)
+    xs = torch.linspace(0.0, 100.0, N_TEST, device="cuda")
+
+    def grouper(features):
+        return np.floor(features.cpu().numpy() / PITC_WIDTH).astype(np.int64)
+
+    out, seconds = {}, {}
+    _build.reset_launch_counts()
+    for name, group in (("fitc", None), ("pitc", grouper)):
+        single = sparse_model(pt, PITC_LS, pt.UniformlySpacedInducingPoints(M_PITC), group)
+        model = single if mesh is None else par.distributed_sparse_gp_from_covariance(
+            single.covariance_function, mesh, grouper=single.grouper,
+            inducing_point_strategy=single.inducing_point_strategy)
+        t = time.perf_counter()
+        pred = model.fit(data).predict(xs).marginal()
+        torch.cuda.synchronize()
+        seconds[f"{name} fit + predict"] = time.perf_counter() - t
+        out[f"{name} mean"], out[f"{name} variance"] = pred.mean.cpu(), pred.variance.cpu()
+        t = time.perf_counter()
+        out[f"{name} nlml"] = model.log_likelihood(data).item()
+        seconds[f"{name} nlml"] = time.perf_counter() - t
+        value, grad = value_grad(torch, model, data)
+        out[f"{name} value"], out[f"{name} gradient"] = value.item(), grad.cpu()
+    sizes = np.unique(grouper(torch.as_tensor(x_np)), return_counts=True)[1]
+    bounds = np.cumsum(sizes)[:-1]
+    b = N_PITC // DIST_WORLD
+    straddling = int(np.sum((bounds // b) != ((bounds - sizes[:-1]) // b)))
+    return {"out": out, "seconds": seconds, "launches": dict(_build.LAUNCHES),
+            "groups": (len(sizes), straddling)}
+
+
 def _dist_rank(rank: int, world: int, rendezvous: str, root: str) -> None:
     """A rank of the gloo world on the shared card: runs ``_dist_run`` and
     writes its result, or its traceback, to ``rank<r>.pkl``."""
@@ -2170,7 +2412,12 @@ def _dist_rank(rank: int, world: int, rendezvous: str, root: str) -> None:
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"file://{rendezvous}/init", world_size=world, rank=rank)
     try:
-        result = {"ok": True, **_dist_run(torch, np, pt, _build, par.make_mesh())}
+        mesh = par.make_mesh()
+        result = {"ok": True, **_dist_run(torch, np, pt, _build, mesh)}
+        # the same ranks: the 2-D layout on a second mesh, then the sparse GP
+        result["2d"] = _dist_run_2d(torch, np, pt, _build,
+                                    par.make_mesh(axis_names=("data", "model"), shape=DIST_2D_SHAPE))
+        result["sparse"] = _dist_run_sparse(torch, np, pt, _build, mesh)
     except Exception:  # the parent fails with it
         result = {"ok": False, "error": traceback.format_exc()}
     with open(f"{rendezvous}/rank{rank}.pkl", "wb") as f:
@@ -2191,6 +2438,8 @@ def check_distributed_four(torch, np, pt, _build, card: str) -> dict:
 
     t0 = time.perf_counter()
     ref = _dist_run(torch, np, pt, _build, None)
+    ref2d = _dist_run_2d(torch, np, pt, _build, None)
+    ref_sparse = _dist_run_sparse(torch, np, pt, _build, None)
     rendezvous = tempfile.mkdtemp()
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=_dist_rank, args=(r, DIST_WORLD, rendezvous, str(Path(__file__).resolve().parent)))
@@ -2236,8 +2485,53 @@ def check_distributed_four(torch, np, pt, _build, card: str) -> dict:
                 _dist_errors(torch, out, refs), DIST_FOUR_TOLS)
     if launches["panel_cholinv"] == 0 or launches["radial_gram"] == 0:
         fail(f"gloo world: the ranks launched no panel or gram kernel: {launches}")
+    for r in ranks[1:]:
+        for part in ("2d", "sparse"):
+            for k, v in r[part]["out"].items():
+                same = v == ranks[0][part]["out"][k] if isinstance(v, float) else torch.equal(v, ranks[0][part]["out"][k])
+                if not same:
+                    fail(f"gloo world: rank results differ in {part} {k}")
+
+    # the 2-D layout on a DIST_2D_SHAPE mesh of the same ranks
+    launches_2d = {k: sum(r["2d"]["launches"][k] for r in ranks) for k in ranks[0]["2d"]["launches"]}
+    steps = N_DIST // COL_B  # panel steps a factorization: the tile width N / C is a multiple of 1024
+    print(f"[{card}] distributed world {DIST_WORLD} N={N_DIST}, 2-D layout on a {DIST_2D_SHAPE} mesh: launches "
+          f"summed over the ranks {launches_2d} (each rank: {ranks[0]['2d']['launches']}); single process "
+          f"{ref2d['launches']}")
+    print(f"[{card}] distributed world {DIST_WORLD} N={N_DIST} 2-D f32 seconds (gloo, through the host): rank 0 "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ranks[0]["2d"]["seconds"].items()) + "; single process "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ref2d["seconds"].items()))
+    for r, res in enumerate(ranks):
+        shape, nbytes = res["2d"]["tile"]
+        print(f"[{card}] gloo rank {r}: 2-D factor tile {shape}, {nbytes / 2**20:.1f} MiB; largest tensor a "
+              f"forward op wrote {res['2d']['largest']} entries (N^2 = {N_DIST * N_DIST}); peak device memory "
+              f"{res['2d']['peak'] / 2**30:.2f} GiB (single process {ref2d['peak'] / 2**30:.2f} GiB)")
+        if res["2d"]["largest"] >= N_DIST * N_DIST:
+            fail(f"gloo rank {r} wrote an N x N tensor in the 2-D layout ({res['2d']['largest']} entries)")
+    check_gates(f"distributed world {DIST_WORLD} N={N_DIST}, 2-D layout, against the single-process run",
+                _dist_errors(torch, ranks[0]["2d"]["out"], ref2d["out"]), DIST_2D_FOUR_TOLS)
+    # every rank launches the panel kernel once a panel step of each
+    # factorization: two NLMLs, the fit, value+grad's forward, and the
+    # update's fit of the first DIST_UPDATE_FIRST points
+    expected = 4 * steps + DIST_UPDATE_FIRST // COL_B
+    if any(r["2d"]["launches"]["panel_cholinv"] != expected for r in ranks) or launches_2d["radial_gram"] == 0:
+        fail(f"gloo world 2-D layout: launches {[r['2d']['launches'] for r in ranks]}")
+
+    # the distributed sparse GP on the 1-D mesh of the same ranks
+    launches_sparse = {k: sum(r["sparse"]["launches"][k] for r in ranks) for k in ranks[0]["sparse"]["launches"]}
+    n_groups, straddling = ranks[0]["sparse"]["groups"]
+    print(f"[{card}] distributed sparse world {DIST_WORLD} N={N_PITC} M={M_PITC}: PITC {n_groups} groups, "
+          f"{straddling} straddle the ranks' rows; launches summed over the ranks {launches_sparse}; single "
+          f"process {ref_sparse['launches']}")
+    print(f"[{card}] distributed sparse world {DIST_WORLD} f32 seconds (gloo, through the host): rank 0 "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ranks[0]["sparse"]["seconds"].items()) + "; single process "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ref_sparse["seconds"].items()))
+    check_gates(f"distributed sparse world {DIST_WORLD} N={N_PITC} against the single-process FITC and PITC",
+                _dist_errors(torch, ranks[0]["sparse"]["out"], ref_sparse["out"]), DIST_SPARSE_FOUR_TOLS)
+    if straddling == 0 or launches_sparse["radial_gram"] == 0:
+        fail(f"distributed sparse world: {straddling} straddling groups, launches {launches_sparse}")
     print(f"[{card}] distributed world-{DIST_WORLD} phase: {time.perf_counter() - t0:.1f} s")
-    return launches
+    return {"distributed_four": launches, "distributed_four_2d": launches_2d, "distributed_sparse_four": launches_sparse}
 
 
 def main() -> int:
@@ -2559,8 +2853,8 @@ def main() -> int:
     check_eft(torch, card)
     phase_counts["accuracy_modes"] = check_accuracy_modes(torch, np, pt, _build, config, card, data, ll_ref_val,
                                                           args)
-    phase_counts["distributed_one"] = check_distributed_one(torch, np, pt, _build, card)
-    phase_counts["distributed_four"] = check_distributed_four(torch, np, pt, _build, card)
+    phase_counts.update(check_distributed_one(torch, np, pt, _build, card))
+    phase_counts.update(check_distributed_four(torch, np, pt, _build, card))
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

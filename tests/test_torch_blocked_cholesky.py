@@ -103,3 +103,22 @@ def test_not_positive_definite_surfaces_as_nan():
     K = -torch.eye(64, dtype=torch.float64)
     ld, _ = CholeskyFactor.nlml_terms(K, torch.ones(64, dtype=torch.float64))
     assert torch.isnan(ld)
+
+
+@pytest.mark.parametrize("call", ["positional_use_inverse", "solve_route", "panel_sub_none", "rhs_fourth"])
+def test_blocked_cholesky_takes_the_reference_signature(call):
+    """(K, block_size, use_inverse, rhs, panel_sub) in the JAX package's
+    order: a third positional argument is use_inverse, a fourth the
+    right-hand side; every route gives the reference's factor."""
+    K, rhs = _problem(384, seed=5)
+    jK, jr = jnp.asarray(K), jnp.asarray(rhs)
+    tK, tr = torch.tensor(K), torch.tensor(rhs)
+    args = {"positional_use_inverse": (128, True), "solve_route": (128, False),
+            "panel_sub_none": (128, True, None, None), "rhs_fourth": (128, True, "rhs")}[call]
+    targs = tuple(tr if a == "rhs" else a for a in args)
+    jargs = tuple(jr if a == "rhs" else a for a in args)
+    got, want = tbc.blocked_cholesky(tK, *targs), jbc.blocked_cholesky(jK, *jargs)
+    if call == "rhs_fourth":
+        (got, gz), (want, wz) = got, want
+        np.testing.assert_allclose(gz.numpy(), np.asarray(wz), rtol=RTOL, atol=RTOL * np.abs(np.asarray(wz)).max())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=RTOL * np.abs(np.asarray(want)).max())

@@ -303,3 +303,18 @@ def test_config_errors():
         with pytest.raises(ValueError, match="MAX_CUDA_PANEL"):
             default_block_size(4096, torch.device("cuda"), torch.float32)
         assert default_block_size(4096, torch.device("cuda"), torch.float64) == 2048
+
+
+def test_dw_sum_takes_the_reference_axis_keyword():
+    """dw_sum(hi, lo, axis=1) as the reference calls it (torch's dim= is
+    kept beside it), against the JAX package at f64."""
+    rng = np.random.default_rng(31)
+    hi, lo = rng.standard_normal((3, 37)), 1e-17 * rng.standard_normal((3, 37))
+    want = jc.dw_sum(jnp.asarray(hi), jnp.asarray(lo), axis=1)
+    for got in (tc.dw_sum(torch.tensor(hi), torch.tensor(lo), axis=1),
+                tc.dw_sum(torch.tensor(hi), torch.tensor(lo), 1),
+                tc.dw_sum(torch.tensor(hi), torch.tensor(lo), dim=1)):
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-15, atol=1e-30)
+    h0, l0 = tc.dw_sum(torch.tensor(hi), axis=0)
+    assert h0.shape == (37,) and l0.shape == (37,)

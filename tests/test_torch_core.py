@@ -171,3 +171,39 @@ def test_core_exports_the_mixin_and_validity():
     params = {"a": Parameter(0.5, tpriors.UniformPrior(0.0, 1.0))}
     assert pt.core.params_are_valid(params)
     assert not pt.core.params_are_valid({"a": Parameter(2.0, tpriors.UniformPrior(0.0, 1.0))})
+
+
+@pytest.mark.parametrize("package", ["port", "jax"])
+def test_insights_are_metadata_outside_the_parameters(package):
+    """``insights`` is a string map created on first use, on a GP and on a
+    kernel, in both packages; it stays out of the parameters, the tunable
+    vector and the parameter set a checkpoint restores."""
+    mod = pt if package == "port" else ab
+    kernel = mod.SquaredExponential(1.5, 1.0)
+    model = mod.gp_from_covariance(kernel + mod.IndependentNoise(0.1))
+    before = np.asarray(model.get_tunable_parameters().values)
+    model.insights["k"] = "v"
+    kernel.insights["kernel"] = kernel.name
+    assert model.insights == {"k": "v"} and kernel.insights == {"kernel": kernel.name}
+    assert mod.gp_from_covariance(kernel).insights == {}  # one map per object
+    assert "insights" not in model.get_params() and "_insights" not in model.get_params()
+    after = model.get_tunable_parameters()
+    np.testing.assert_array_equal(np.asarray(after.values), before)
+    assert all("insight" not in name for name in after.names)
+    moved = model.set_tunable_params(after.values)
+    assert sorted(moved.get_params()) == sorted(model.get_params())
+
+
+def test_insights_stay_out_of_checkpoints_and_follow_setters(tmp_path):
+    """A checkpoint restores the model without its insights, as the JAX
+    package's pytree checkpoint does; a setter's copy shares the map."""
+    from albatross_tpu_torch.serialize import load_checkpoint, save_checkpoint
+
+    model = pt.gp_from_covariance(pt.SquaredExponential(1.5, 1.0) + pt.IndependentNoise(0.1))
+    model.insights["run"] = "7"
+    moved = model.set_param_value("squared_exponential_length_scale", 2.0)
+    assert moved.insights == {"run": "7"}
+    save_checkpoint(str(tmp_path / "m.ckpt"), model)
+    restored = load_checkpoint(str(tmp_path / "m.ckpt"), device="cpu")
+    assert restored.insights == {}
+    assert restored.get_param_value("squared_exponential_length_scale") == 1.5

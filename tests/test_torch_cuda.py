@@ -813,3 +813,39 @@ def test_distributed_gp_on_a_world_of_one_nccl_rank(cuda, tmp_path):
         assert multi.log_likelihood(data).item() == pytest.approx(single.log_likelihood(data).item(), rel=1e-10)
     finally:
         dist.destroy_process_group()
+
+
+def test_2d_layout_and_distributed_sparse_gp_on_a_world_of_one_nccl_rank(cuda, tmp_path):
+    """The 2-D tile layout on a (1, 1) mesh and the distributed FITC on an
+    NCCL world of one rank equal the single-process models on the card,
+    f64; the 2-D factorization launches no panel kernel in f64."""
+    import torch.distributed as dist
+
+    from albatross_tpu_torch import _build
+    from albatross_tpu_torch import parallel as par
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'rendezvous'}", world_size=1, rank=0)
+    try:
+        mesh2d = par.make_mesh(axis_names=("data", "model"), shape=(1, 1))
+        rng = np.random.default_rng(5)
+        x = np.sort(rng.uniform(0, 10, 2048))
+        y = np.sin(x) + 0.1 * rng.standard_normal(2048)
+        data = pt.RegressionDataset.create(x, y, device=cuda, dtype=torch.float64)
+        kernel = pt.SquaredExponential(1.5, 1.0) + pt.measurement_only(pt.IndependentNoise(0.2))
+        xs = torch.linspace(0.5, 9.5, 64, dtype=torch.float64, device=cuda)
+        multi = par.distributed_gp_from_covariance(kernel, mesh2d, col_axis="model", panel=512, jitter=1e-8)
+        single = pt.gp_from_covariance(kernel, jitter=1e-8)
+        _build.reset_launch_counts()
+        p2, p1 = (m.fit(data).predict(xs).marginal() for m in (multi, single))
+        torch.testing.assert_close(p2.mean, p1.mean, rtol=1e-9, atol=1e-12)
+        torch.testing.assert_close(p2.variance, p1.variance, rtol=1e-9, atol=1e-12)
+        assert multi.log_likelihood(data).item() == pytest.approx(single.log_likelihood(data).item(), rel=1e-10)
+        assert _build.LAUNCHES["panel_cholinv"] == 0
+        sparse_kw = dict(inducing_point_strategy=pt.UniformlySpacedInducingPoints(64))
+        sparse = par.distributed_sparse_gp_from_covariance(kernel, par.make_mesh(), **sparse_kw)
+        q2, q1 = (m.fit(data).predict(xs).marginal() for m in (sparse, pt.sparse_gp_from_covariance(kernel,
+                                                                                                  **sparse_kw)))
+        torch.testing.assert_close(q2.mean, q1.mean, rtol=1e-9, atol=1e-12)
+        torch.testing.assert_close(q2.variance, q1.variance, rtol=1e-9, atol=1e-12)
+    finally:
+        dist.destroy_process_group()

@@ -83,9 +83,12 @@ def world(tmp_path_factory):
     """(inputs, the results of each rank)."""
     tmp = tmp_path_factory.mktemp("gloo_world")
     inputs = _inputs(tmp)
+    with open(tmp / "inputs.pkl", "wb") as f:
+        pickle.dump(inputs, f)
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=ranks.run,
-                         args=(r, WORLD, str(tmp / "rendezvous"), str(tmp), inputs)) for r in range(WORLD)]
+                         args=(r, WORLD, str(tmp / "rendezvous"), str(tmp), str(tmp / "inputs.pkl")))
+             for r in range(WORLD)]
     for p in procs:
         p.start()
     for p in procs:
@@ -292,7 +295,8 @@ def test_walker_sharded_sampler_matches_the_unsharded_chain(world):
 
 def test_errors_and_multiprocess_helpers(world):
     """N not divisible by the ranks raises the JAX package's ValueError;
-    the 2-D layout is not ported; initialize_multihost is a no-op in an
+    the 2-D layout asks the mesh for its column axis, which a 1-D mesh
+    lacks; initialize_multihost is a no-op in an
     initialized world (and in a single process, here); process_local_batch
     splits by the world."""
     from albatross_tpu_torch.parallel import multihost
@@ -301,7 +305,7 @@ def test_errors_and_multiprocess_helpers(world):
     errors = results[0]["errors"]
     assert errors["cholesky"] == "ValueError: N=30 not divisible by mesh axis size 4"
     assert errors["gram"] == "ValueError: N=30 not divisible by mesh axis size 4"
-    assert errors["col_axis"].startswith("NotImplementedError: col_axis='model' selects the 2-D")
+    assert errors["col_axis"] == "ValueError: mesh has no axis 'model'; its axes are ('data',)"
     assert "spans the whole world" in errors["n_devices"]
     assert errors["batch"] == "ValueError: global batch 98 not divisible by 4 processes"
     assert "no axis 'rows'" in errors["axis"]

@@ -124,7 +124,7 @@ def _checks(rank, world, inputs):
     for name, fn in (
         ("cholesky", lambda: par.distributed_cholesky(T(inputs["A30"]), mesh)),
         ("gram", lambda: par.sharded_gram(kernel, T(inputs["A30"][0]), mesh)),
-        ("col_axis", lambda: par.DistributedGaussianProcess(kernel, mesh, col_axis="model")),
+        ("col_axis", lambda: par.DistributedGaussianProcess(kernel, mesh, col_axis="model").fit(data)),
         ("n_devices", lambda: par.make_mesh(2, device="cpu")),
         ("batch", lambda: multihost.process_local_batch(98)),
         ("axis", lambda: par.sharded_gram(kernel, x40, mesh, axis="rows")),
@@ -179,15 +179,21 @@ def _checks(rank, world, inputs):
     return out
 
 
-def run(rank, world, init_file, out_dir, inputs):
-    """Join the gloo world, run every check, write ``rank<r>.pkl``: the
-    results, or the traceback of the first failure."""
+def run(rank, world, init_file, out_dir, inputs, checks=None):
+    """Join the gloo world, run every check (``checks``, this module's by
+    default) on the inputs pickled at the path ``inputs``, write
+    ``rank<r>.pkl``: the results, or the traceback of the first failure.
+    (Inputs passed through a file keep the spawn pipe small: a payload
+    larger than the pipe's buffer makes each ``Process.start`` wait for the
+    child to import torch.)"""
+    with open(inputs, "rb") as f:
+        inputs = pickle.load(f)
     torch.set_num_threads(1)
     torch.exp(torch.linspace(-3.0, 0.0, 4096, dtype=torch.float32))  # warm up the f32 exp
     dist.init_process_group("gloo", init_method=f"file://{init_file}", world_size=world, rank=rank,
                             timeout=datetime.timedelta(seconds=60))
     try:
-        result = {"ok": True, "out": _checks(rank, world, inputs)}
+        result = {"ok": True, "out": (checks or _checks)(rank, world, inputs)}
     except Exception:  # report it to the test, which fails with the traceback
         result = {"ok": False, "error": traceback.format_exc()}
     with open(f"{out_dir}/rank{rank}.pkl", "wb") as f:

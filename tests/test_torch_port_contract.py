@@ -51,12 +51,9 @@ def test_every_jax_name_has_a_counterpart(package):
 # hand-written kernels with full f32 products (config's docstring).
 TPU_ONLY_CONFIG = {"USE_PALLAS_GRAM", "PALLAS_GRAM_MIN_ELEMENTS", "PALLAS_GRAM_AUTO_MIN_D", "pallas_gram_enabled",
                    "PANEL_FACTORIZER", "DW_DOT_ALGORITHM", "CHOLESKY_TRAILING_BF16"}
-# parallel's 2-D tile layout and distributed sparse GP, still to port
-PENDING_PARALLEL = {"cholesky2d", "sparse", "DistributedCholesky2D", "distributed_cholesky_2d",
-                    "distributed_inverse_blocks_2d", "distributed_inverse_diagonal_2d",
-                    "distributed_log_determinant_2d", "distributed_solve_2d", "distributed_sqrt_solve_2d",
-                    "distributed_tri_inverse_2d", "sharded_gram_2d", "DistributedSparseGaussianProcessRegression",
-                    "distributed_sparse_gp_from_covariance", "distributed_tall_qr"}
+# parallel's names still to port: none since the 2-D tile layout and the
+# distributed sparse GP landed
+PENDING_PARALLEL: set = set()
 
 
 def test_config_has_every_knob_but_the_tpu_only_ones():
@@ -72,10 +69,52 @@ def test_config_has_every_knob_but_the_tpu_only_ones():
 
 
 def test_parallel_has_the_1d_names_and_only_the_2d_and_sparse_ones_pending():
+    """The port's ``parallel`` has every name of the JAX package's: the 1-D
+    row layout, the 2-D tile layout and the distributed sparse GP."""
     import albatross_tpu
 
     missing = {n for n in albatross_tpu.parallel.__all__ if not hasattr(pt.parallel, n)}
     assert missing == PENDING_PARALLEL, missing ^ PENDING_PARALLEL
+    assert not PENDING_PARALLEL
+
+
+# Operators a class may define, compared beside its public members.
+OPERATORS = {"__add__", "__sub__", "__mul__", "__rmul__", "__matmul__", "__rmatmul__", "__neg__",
+             "__getitem__", "__len__"}
+# Members of the JAX classes that the port leaves out on purpose, each with
+# its reason.
+NOT_PORTED_MEMBERS = {
+    "tree_flatten": "the pytree protocol; the port reaches gradients through set_tunable_params "
+                    "and autograd (ROADMAP 'Not to port')",
+    "tree_unflatten": "the other half of the pytree protocol, as above",
+}
+MEMBER_PACKAGES = ["core", "evaluation", "tuning", "indexing", "kernels", "stats", "models", "samplers",
+                   "serialize", "utils", "ops", "parallel"]
+
+
+def _members(cls) -> set:
+    return {m for m in dir(cls) if not m.startswith("_") or m in OPERATORS} - set(NOT_PORTED_MEMBERS)
+
+
+@pytest.mark.parametrize("package", MEMBER_PACKAGES)
+def test_every_jax_class_member_has_a_counterpart(package):
+    """Each class a package of the JAX package exports has, in the port's
+    class of the same name, every public member (methods, properties,
+    fields) and every operator of the JAX class, less the pytree protocol."""
+    import inspect
+
+    import albatross_tpu
+
+    jax_pkg, port_pkg = getattr(albatross_tpu, package), getattr(pt, package)
+    classes = [(n, getattr(jax_pkg, n)) for n in jax_pkg.__all__ if inspect.isclass(getattr(jax_pkg, n))]
+    missing = {}
+    for name, jcls in classes:
+        tcls = getattr(port_pkg, name)
+        assert inspect.isclass(tcls), name
+        gap = sorted(_members(jcls) - _members(tcls))
+        if gap:
+            missing[name] = gap
+    assert not missing, missing
 
 
 def test_f32_matmul_precision_is_highest():
