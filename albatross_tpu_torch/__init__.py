@@ -21,7 +21,9 @@ Chebyshev bases, profiling), and the blocked Cholesky and block solvers
 beneath them.  Its hot
 spots are hand-written CUDA kernels for Hopper (``csrc/``), built with
 nvcc at first use; CPU tensors take each kernel's plain PyTorch version.
-Importing this package never imports JAX.
+The JAX package's examples and tutorials run through the port as
+``albatross_tpu_torch.examples`` and ``albatross_tpu_torch.tutorials``
+(not imported here).  Importing this package never imports JAX.
 """
 
 from . import (

@@ -51,9 +51,9 @@ NLML_COMPENSATED: bool = False
 # nlml_terms above n = 2048: None is the plain blocked loop; "double_word"
 # carries the trailing matrix as an unevaluated (hi, lo) pair
 # (ops/compensated.py blocked_cholesky_dw), so each panel's input is one
-# rounding from exact; "high" asks the JAX package for 3-pass bf16
-# products on the TPU, which every f32 product here already exceeds (full
-# f32, TF32 off), so it takes the default path.
+# rounding from exact; "high" and "highest" ask the JAX package for
+# multi-pass bf16 products on the TPU, which every f32 product here
+# already matches (full f32, TF32 off), so they take the default path.
 CHOLESKY_PRECISION: str | None = None
 
 # Panel size of the blocked factorization: None keeps the device's policy
@@ -65,9 +65,9 @@ CHOLESKY_BLOCK_SIZE: int | None = None
 
 def cholesky_precision() -> str | None:
     """``CHOLESKY_PRECISION``, checked: unknown names raise."""
-    if CHOLESKY_PRECISION not in (None, "high", "double_word"):
+    if CHOLESKY_PRECISION not in (None, "high", "highest", "double_word"):
         raise ValueError(f"unknown CHOLESKY_PRECISION {CHOLESKY_PRECISION!r}; "
-                         'use None, "high" or "double_word"')
+                         'use None, "high", "highest" or "double_word"')
     return CHOLESKY_PRECISION
 
 

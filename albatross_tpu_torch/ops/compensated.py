@@ -139,10 +139,6 @@ def _accurate_log_values(x: torch.Tensor):
 
 
 class _AccurateLog(torch.autograd.Function):
-    # torch.func.vmap batches it (cross-validation scores every fold in one
-    # vmap): the forward is elementwise
-    generate_vmap_rule = True
-
     @staticmethod
     def forward(x):
         return _accurate_log_values(x)
@@ -155,6 +151,15 @@ class _AccurateLog(torch.autograd.Function):
     def backward(ctx, grad_h, grad_l):
         (x,) = ctx.saved_tensors
         return grad_h / x.to(torch.float32)
+
+    @staticmethod
+    def vmap(info, in_dims, x):
+        """torch.func.vmap batches it (cross-validation scores every fold in
+        one vmap).  The forward is elementwise, so it runs on the batched
+        tensor as it stands; a generated rule would need a batching rule
+        for ``Tensor.view(dtype)``, which torch 2.11 lacks (the scores then
+        fell back to one fold at a time)."""
+        return _AccurateLog.apply(x), (in_dims[0], in_dims[0])
 
 
 def accurate_log(x: torch.Tensor):

@@ -179,7 +179,8 @@ class DistributedSparseGaussianProcessRegression(SparseGaussianProcessRegression
         b = n // ax.size
         r0, r1 = ax.rank * b, (ax.rank + 1) * b
         lo, local_sizes = _local_groups(sizes, r0, r1)
-        kernel = _varied(self.covariance_function, ax, first_leaf(reordered).device)
+        device = first_leaf(reordered).device
+        kernel = _varied(self.covariance_function, ax, device)
         K_fu = sharded_cross_gram(self.covariance_function, as_measurement(reordered), inducing_features,
                                   self.mesh, self.axis).to_local()
         if lo < r0:  # the rows of a straddling group before this rank's first row
@@ -188,7 +189,10 @@ class DistributedSparseGaussianProcessRegression(SparseGaussianProcessRegression
         P = torch.linalg.solve_triangular(vary(K_uu_chol.L, ax), K_fu.T, upper=False)
         nugget = self.measurement_nugget.value
         if isinstance(nugget, torch.Tensor):
-            nugget = vary(nugget, ax)
+            # on the device, as _varied's parameters: a CPU nugget's backward
+            # all-reduce would run on autograd's CPU thread, concurrently with
+            # the device thread's, in an order that differs between ranks
+            nugget = vary(nugget.to(device), ax)
         variance = None if target_var is None else vary(target_var, ax)[lo:r1]
         A_chol = _residual_factor(kernel, _rows(reordered, lo, r1), variance, P, local_sizes, nugget)
         y = vary(self.mean_function.remove_from(reordered, target_mean), ax)[lo:r1]

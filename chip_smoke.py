@@ -77,7 +77,16 @@ N x N tensor), and the distributed sparse GP, FITC at N = 131072 with
 4096 inducing points on the NCCL rank (the TSQR's |diag R| against the
 f64 data's) and FITC and PITC at N = 32768 (400 groups, some straddling
 the ranks' rows) with value+grad on the gloo ranks, each against the
-single process.  Any failed check raises.  Each kernel's time is printed
+single process.  Phase (h) runs the port's examples and tutorials
+through their ``run()`` on the card: sinc (its radial_only model, and the
+parametric model tuned by L-BFGS on the LOO likelihood), the sparse
+example, the sampler example at N = 8192 with 32 walkers, the accuracy
+example at N = 28672 and the distributed example on its own (4, 2) mesh
+of 8 gloo ranks sharing the card, each f32 run against the same run() in
+f64 on the card at the largest size where the example's own model still
+factors in f32, and the inspection example and the five tutorials in f64
+against the CPU; each prints its seconds, errors and kernel launches.
+Any failed check raises.  Each kernel's time is printed
 beside its bound (the least time the card could take for the same work);
 the gram kernels also beside the card's write floor, a ``fill_`` of a
 buffer of the gram's shape.
@@ -177,6 +186,30 @@ DIST_TIMEOUT = 600  # seconds the gloo world may take before its ranks are kille
 # 400 groups, which straddle the ranks' rows) in the gloo world.
 DIST_2D_SHAPE = (2, 2)
 DIST_UPDATE_FIRST = 6144
+# Phase (h), the port's examples and tutorials through their run() on the
+# card, f32 against the same run() in f64 on the card, each at the largest
+# size where the example's own model still factors in f32 (PERF.md section
+# 4): sinc's radial_only model at EX_SINC_N (sigma 100 over noise 1: NaN
+# from 2560, read at EX_SINC_NAN_N each run); the parametric sinc model
+# tuned by L-BFGS on the LOO likelihood at EX_TUNE_N (from 3584 the f32
+# inputs repeat a value, which the by-value noise makes singular); the
+# sparse example at EX_SPARSE_N with EX_M inducing points (K_uu NaNs from
+# 32, the f32 inputs repeat from 10240); the sampler example at N_SAMPLER
+# with W_SAMPLER walkers, SAMPLER_ITERATIONS iterations and EX_BURN_IN of
+# burn-in; the accuracy example at EX_N against its own f64 oracle; the
+# distributed example on its own (4, 2) mesh over EX_RANKS gloo ranks
+# sharing the card at N_DIST, f64 as the JAX example (its own
+# single-process checks); the inspection example and the tutorials as
+# written, f64 on the card against the CPU.
+EX_N, EX_SINC_N, EX_SINC_NAN_N, EX_TUNE_N = 28672, 2048, (2560, 28672), 3072
+EX_SPARSE_N, EX_M, EX_BURN_IN, EX_RANKS = 8192, 24, 8, 8
+# where the examples' models stop holding in f32, read (not gated) each
+# run: sinc's radial model (the polynomial's sigma 100) at these n, the
+# sparse example at EX_SPARSE_N with these inducing counts
+EX_RADIAL_N, EX_M_NAN = (20, 100), (32, 2048)
+EX_SMALL = ("examples.inspection", "tutorials.tutorial_1_one_dimension", "tutorials.tutorial_2_maximum_likelihood",
+            "tutorials.tutorial_3_sparse", "tutorials.tutorial_4_state_space",
+            "tutorials.tutorial_5_evaluating_uncertainty")
 # NVIDIA's data sheet for the H100 SXM: device memory rate, and the FP32
 # rate outside the tensor cores (the panel kernel and the grams use no
 # tensor cores).
@@ -304,6 +337,27 @@ DIST_SPARSE_ONE_TOLS = {"mean": 9.2e-6, "variance": 6.8e-5, "nlml": 2.9e-5}
 DIST_SPARSE_FOUR_TOLS = {"fitc mean": 9.7e-6, "fitc variance": 1e-7, "fitc nlml": 1.8e-5, "fitc value": 1.8e-5,
                          "fitc gradient": 2e-5, "pitc mean": 1e-5, "pitc variance": 1e-7, "pitc nlml": 5.1e-5,
                          "pitc value": 5.1e-5, "pitc gradient": 1.2e-5}
+
+# Phase (h)'s gates: f32 against f64 on the card, each error the largest
+# |f32 - f64| over the largest |f64| entry (relative for a scalar), about
+# 10x the first reading on H100 (PERF.md section 2).  The small examples
+# and tutorials run f64 on the card and on the CPU: 1e-9 relative, as the
+# f64 phase, with an absolute floor of 1e-12 for rounding residues (an
+# update against a refit, an eigenvalue of 3e-16); printed text equal, its
+# numbers within one unit of their last printed digit.
+EX_TOLS = {  # the comments: first readings, NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6)
+    # 1.286e-3, 3.131e-3, 5.046e-3, 2.357e-2: kappa 3.8e6, so eps_f32 kappa = 0.23
+    "sinc_radial_only": {"nlml": 1.3e-2, "rmse": 3.1e-2, "mean": 5e-2, "variance": 0.24},
+    # 4.836e-8, 4.815e-8
+    "sinc_parametric_tuned": {"objective at the f32 optimum": 4.8e-7, "tuned objective": 4.8e-7},
+    # 5.624e-6, 1.812e-3, 1.698e-4, 6.394e-5
+    "sparse": {"sparse mean": 5.6e-5, "sparse variance": 1.8e-2, "exact mean": 1.7e-3, "nlml": 6.4e-4},
+    "sampler": {"tuned nlml": 3.7e-4},  # 3.668e-5
+    # 6.527e-6, 2.628e-7, 2.628e-7, 5.749e-7
+    "accuracy": {"plain f32": 6.5e-5, "compensated": 2.6e-6, "compensated + chol=highest": 2.6e-6,
+                 "compensated + chol=double_word": 5.7e-6},
+}
+EX_CPU_RTOL, EX_CPU_FLOOR = 1e-9, 1e-12
 
 SOURCES = {
     "radial_gram": ("albatross_tpu_torch/csrc/radial_gram.cu", "albatross_tpu/ops/pallas_gram.py:81"),
@@ -2534,6 +2588,193 @@ def check_distributed_four(torch, np, pt, _build, card: str) -> dict:
     return {"distributed_four": launches, "distributed_four_2d": launches_2d, "distributed_sparse_four": launches_sparse}
 
 
+NUMBER = re.compile(r"[-+]?(?:\d+\.?\d*|\.\d+)(?:[eE][-+]?\d+)?")
+
+
+def _leaves(value, path: str = ""):
+    """(path, leaf) pairs of a run()'s result: numbers, arrays and texts."""
+    if isinstance(value, dict):
+        for key, v in value.items():
+            yield from _leaves(v, f"{path}.{key}")
+    elif isinstance(value, (list, tuple)):
+        for i, v in enumerate(value):
+            yield from _leaves(v, f"{path}[{i}]")
+    else:
+        yield path, value
+
+
+def _last_digit(text: str) -> float:
+    mantissa, _, exponent = text.lower().partition("e")
+    return 10.0 ** (-len(mantissa.partition(".")[2]) + (int(exponent) if exponent else 0))
+
+
+def _printed_close(x: str, y: str) -> bool:
+    """Two printed numbers equal in magnitude to one unit of the last
+    printed digit (an eigenvector's sign is arbitrary), or both below
+    EX_CPU_FLOOR (rounding residues)."""
+    a, b = abs(float(x)), abs(float(y))
+    return abs(a - b) <= max(_last_digit(x), _last_digit(y)) * 1.000001 or max(a, b) <= EX_CPU_FLOOR
+
+
+def cpu_mismatches(np, card: dict, cpu: dict) -> tuple[list, float]:
+    """(the leaves where the card's run() differs from the CPU's, the
+    largest relative difference of a number above EX_CPU_FLOOR): numbers
+    within EX_CPU_RTOL relative or EX_CPU_FLOOR absolute; texts equal but
+    for their numbers (``_printed_close``)."""
+    bad, largest = [], 0.0
+    card_leaves, cpu_leaves = list(_leaves(card)), list(_leaves(cpu))
+    if [p for p, _ in card_leaves] != [p for p, _ in cpu_leaves]:
+        return ["the results' structure"], math.nan
+    for (path, a), (_, b) in zip(card_leaves, cpu_leaves):
+        if isinstance(a, str):
+            words_equal = NUMBER.sub("#", a) == NUMBER.sub("#", b)
+            if not (words_equal and all(_printed_close(x, y) for x, y in zip(NUMBER.findall(a), NUMBER.findall(b)))):
+                bad.append(path)
+            continue
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        diff = np.abs(a - b)
+        scale = np.maximum(np.abs(a), np.abs(b))
+        if a.shape != b.shape or not np.all(diff <= EX_CPU_RTOL * scale + EX_CPU_FLOOR):
+            bad.append(path)
+        above = scale > EX_CPU_FLOOR
+        if a.shape == b.shape and above.any():
+            largest = max(largest, float(np.max(diff[above] / scale[above])))
+    return bad, largest
+
+
+def timed_run(torch, _build, fn) -> tuple:
+    """(fn's result, its synchronised seconds, the kernel launches it made:
+    the counts set to 0 just before and read just after)."""
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t, dict(_build.LAUNCHES)
+
+
+def report_example(name: str, card: str, seconds: float, ref_seconds: float, errors: dict, launches: dict,
+                   f32_n: int = 0) -> None:
+    """Print an example's seconds, errors against its reference (beside
+    its gates) and launches; fail on a gate, or when an f32 run above
+    n = 2048 launched no panel kernel."""
+    print(f"[{card}] example {name}: {seconds:.3f} s, reference {ref_seconds:.3f} s; launches {launches}")
+    check_gates(f"[{card}] example {name}", errors, EX_TOLS[name])
+    if f32_n > 2048 and launches["panel_cholinv"] + launches["panel_cholinv_batched"] == 0:
+        fail(f"example {name}: an f32 run at n = {f32_n} launched no panel kernel")
+
+
+def check_examples(torch, np, _build, card: str) -> dict:
+    """Phase (h): the port's examples and tutorials at full size through
+    their run(), each against its reference (see EX_TOLS).  Returns each
+    run's kernel launches by name."""
+    import tempfile
+
+    from albatross_tpu_torch.evaluation import LeaveOneOutLikelihood
+    from albatross_tpu_torch.examples import accuracy, distributed, sampler, sinc, sparse
+
+    f32, f64 = torch.float32, torch.float64
+    t_phase = time.perf_counter()
+    counts = {}
+
+    # sinc's radial_only model at EX_SINC_N, and its f32 NLML where it no longer factors
+    out32, secs, counts["sinc_radial_only"] = timed_run(
+        torch, _build, lambda: sinc.run("radial_only", n=EX_SINC_N, device="cuda", dtype=f32))
+    out64, ref_secs, _ = timed_run(
+        torch, _build, lambda: sinc.run("radial_only", n=EX_SINC_N, device="cuda", dtype=f64))
+    report_example("sinc_radial_only", card, secs, ref_secs, {
+        "nlml": scalar_rel(out32["nlml"], out64["nlml"]), "rmse": scalar_rel(out32["rmse"], out64["rmse"]),
+        "mean": max_rel(torch.as_tensor(out32["mean"]), torch.as_tensor(out64["mean"])),
+        "variance": max_rel(torch.as_tensor(out32["variance"]), torch.as_tensor(out64["variance"]))},
+        counts["sinc_radial_only"], EX_SINC_N)
+    for mode, sizes in (("radial_only", EX_SINC_NAN_N), ("radial", EX_RADIAL_N)):
+        for n in sizes:
+            nlml = [float(-sinc.build_model(mode).log_likelihood(sinc.make_data(n, 1.0, device="cuda", dtype=dt)))
+                    for dt in (f32, f64)]
+            print(f"[{card}] example sinc {mode} at n = {n}: NLML f32 {nlml[0]!r}, f64 {nlml[1]!r}, relative "
+                  f"{scalar_rel(*nlml):.3e} (where the f32 factor fails, not gated)")
+
+    # the parametric sinc model tuned by L-BFGS on the LOO likelihood
+    out32, secs, counts["sinc_parametric_tuned"] = timed_run(
+        torch, _build, lambda: sinc.run("parametric", tune=True, n=EX_TUNE_N, device="cuda", dtype=f32))
+    out64, ref_secs, _ = timed_run(
+        torch, _build, lambda: sinc.run("parametric", tune=True, n=EX_TUNE_N, device="cuda", dtype=f64))
+    at_f32_optimum = float(LeaveOneOutLikelihood()(sinc.make_data(EX_TUNE_N, 1.0, device="cuda", dtype=f64),
+                                                   sinc.build_model("parametric").set_param_values(out32["params"])))
+    print(f"[{card}] example sinc_parametric_tuned: tuned LOO objective f32 {out32['tuned_objective']!r}, f64 at "
+          f"the f32 optimum {at_f32_optimum!r}, f64 tuned {out64['tuned_objective']!r}")
+    report_example("sinc_parametric_tuned", card, secs, ref_secs, {
+        "objective at the f32 optimum": scalar_rel(out32["tuned_objective"], at_f32_optimum),
+        "tuned objective": scalar_rel(out32["tuned_objective"], out64["tuned_objective"])},
+        counts["sinc_parametric_tuned"], EX_TUNE_N)
+
+    # the sparse example: FITC with EX_M inducing points, and the exact GP
+    out32, secs, counts["sparse"] = timed_run(
+        torch, _build, lambda: sparse.run(EX_SPARSE_N, EX_M, device="cuda", dtype=f32))
+    out64, ref_secs, _ = timed_run(torch, _build, lambda: sparse.run(EX_SPARSE_N, EX_M, device="cuda", dtype=f64))
+    print(f"[{card}] example sparse: max |sparse - exact| mean f32 {out32['max_err']!r}, f64 {out64['max_err']!r}")
+    for m in EX_M_NAN:
+        nlml = sparse.run(EX_SPARSE_N, m, device="cuda", dtype=f32)["nlml"]
+        print(f"[{card}] example sparse at M = {m}: NLML f32 {nlml!r} (where K_uu's f32 factor fails, not gated)")
+    report_example("sparse", card, secs, ref_secs, {
+        "sparse mean": max_rel(torch.as_tensor(out32["sparse_mean"]), torch.as_tensor(out64["sparse_mean"])),
+        "sparse variance": max_rel(torch.as_tensor(out32["sparse_variance"]),
+                                   torch.as_tensor(out64["sparse_variance"])),
+        "exact mean": max_rel(torch.as_tensor(out32["exact_mean"]), torch.as_tensor(out64["exact_mean"])),
+        "nlml": scalar_rel(out32["nlml"], out64["nlml"])}, counts["sparse"], EX_SPARSE_N)
+
+    # the sampler example: the warm start against f64, then the chain
+    with tempfile.TemporaryDirectory() as tmp:
+        out32, secs, counts["sampler"] = timed_run(torch, _build, lambda: sampler.run(
+            N_SAMPLER, W_SAMPLER, SAMPLER_ITERATIONS, EX_BURN_IN, f"{tmp}/chains.csv", device="cuda", dtype=f32))
+        with open(f"{tmp}/chains.csv") as f:
+            rows = sum(1 for _ in f)
+    (_, ref), ref_secs, _ = timed_run(torch, _build, lambda: sampler.tune(
+        sampler.make_data(N_SAMPLER, device="cuda", dtype=f64)))
+    print(f"[{card}] example sampler: acceptance {out32['acceptance_rate']!r}, posterior length scale "
+          f"{out32['length_scale']}, sigma {out32['sigma']}, {rows} CSV rows, {W_SAMPLER * SAMPLER_ITERATIONS} "
+          f"walker-steps in {secs:.3f} s (the warm start included)")
+    if not (np.isfinite(out32["log_prob"]).all() and 0.0 < out32["acceptance_rate"] < 1.0
+            and rows == 1 + (SAMPLER_ITERATIONS + 1) * W_SAMPLER):
+        fail(f"example sampler: a non-finite log-prob, acceptance {out32['acceptance_rate']} or {rows} CSV rows")
+    report_example("sampler", card, secs, ref_secs, {"tuned nlml": scalar_rel(out32["tuned_nlml"], float(ref.value))},
+                   counts["sampler"], N_SAMPLER)
+
+    # the accuracy example: its own f32 data against its own f64 oracle on the card
+    out, secs, counts["accuracy"] = timed_run(torch, _build, lambda: accuracy.run(EX_N, device="cuda"))
+    print(f"[{card}] example accuracy: f64 oracle log-likelihood {out['oracle']!r}; "
+          + "; ".join(f"{k} {ll!r}" for k, (ll, _) in out["modes"].items()))
+    report_example("accuracy", card, secs, secs, {k: rel for k, (_, rel) in out["modes"].items()},
+                   counts["accuracy"], EX_N)
+
+    # the distributed example on its own (4, 2) mesh of gloo ranks sharing the card
+    t = time.perf_counter()
+    out = distributed.run(N_DIST, EX_RANKS, device="cuda")
+    counts["distributed"] = out["launches"]
+    print(f"[{card}] example distributed: {time.perf_counter() - t:.3f} s on {EX_RANKS} gloo ranks, N = {N_DIST}, "
+          f"f64; NLML single {out['single_nlml']!r}, 1-D {out['nlml_1d']!r}, 2-D {out['nlml_2d']!r}; sparse "
+          f"{out['sparse_ll']!r} (single {out['sparse_single_ll']!r}); max|dmean| 1-D {out['mean_err_1d']:.3e}, "
+          f"2-D {out['mean_err_2d']:.3e}, update {out['update_err']:.3e}, sparse {out['sparse_mean_err']:.3e}; "
+          f"tiles {out['tiles']}; launches (summed over ranks) {out['launches']}")
+    if not (out["ok"] and out["tiles"] == [(N_DIST // 4, N_DIST // 2)] * EX_RANKS):
+        fail(f"example distributed: its single-process checks failed or its tiles are {out['tiles']}")
+
+    # inspection and the tutorials as written: f64 on the card against the CPU
+    for module in EX_SMALL:
+        run = importlib.import_module(f"albatross_tpu_torch.{module}").run
+        card_out, secs, counts[module] = timed_run(torch, _build, lambda: run("cuda"))
+        t = time.perf_counter()
+        cpu_out = run("cpu")
+        bad, largest = cpu_mismatches(np, card_out, cpu_out)
+        print(f"[{card}] {module}: {secs:.3f} s on the card, {time.perf_counter() - t:.3f} s on the CPU; card "
+              f"against CPU largest relative difference {largest:.3e} (tol {EX_CPU_RTOL:g}, floor "
+              f"{EX_CPU_FLOOR:g}); launches {counts[module]}")
+        if bad:
+            fail(f"{module} on the card differs from the CPU at {bad}")
+    print(f"[{card}] phase (h), the examples and tutorials: {time.perf_counter() - t_phase:.1f} s")
+    return {f"example_{name.replace('.', '_')}": c for name, c in counts.items()}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -2788,6 +3029,16 @@ def main() -> int:
     results["radial_gram"]["plain_ms"] = cuda_ms(torch, lambda: plain_radial_gram(x, xs, LENGTH_SCALE, SIGMA, profile))
     results["panel_cholinv"]["ms"] = cuda_ms(torch, lambda: panel_cholinv(A))
     results["panel_cholinv"]["plain_ms"] = cuda_ms(torch, lambda: plain_panel_cholinv(A))
+    eye = torch.eye(A.shape[0], dtype=A.dtype, device=dev)
+
+    def library_pair():
+        """The same function by two library calls: cuSOLVER's potrf, then
+        a trsm against the identity for the inverse."""
+        return torch.linalg.solve_triangular(torch.linalg.cholesky(A), eye, upper=False)
+
+    results["panel_cholinv"]["library_two_call_ms"] = cuda_ms(torch, library_pair)
+    print(f"[{card}] panel_cholinv b={A.shape[0]} f32: the two library calls (torch.linalg.cholesky + "
+          f"solve_triangular against the identity) {results['panel_cholinv']['library_two_call_ms']:.4f} ms")
     for name, (ms, by) in (("radial_gram_diag", gram_bound(N, N, 1, 4, square=True, diag=True)),
                            ("radial_gram", gram_bound(N, N_TEST, 1, 4, square=False, diag=False)),
                            ("panel_cholinv", panel_bound(A.shape[0]))):
@@ -2855,6 +3106,8 @@ def main() -> int:
                                                           args)
     phase_counts.update(check_distributed_one(torch, np, pt, _build, card))
     phase_counts.update(check_distributed_four(torch, np, pt, _build, card))
+    # -- phase (h): the examples and tutorials at full size ----------------
+    phase_counts.update(check_examples(torch, np, _build, card))
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
@@ -2871,6 +3124,8 @@ def main() -> int:
         }
         if name in grad_counts["backwards"]:
             entry["value_grad_backward_calls"] = grad_counts["backwards"][name]
+        if "library_two_call_ms" in r:  # two calls, so not the contract's one-call library_ms
+            entry["library_two_call_ms"] = r["library_two_call_ms"]
         if "write_floor_ms" in r:
             entry["write_floor_ms"] = r["write_floor_ms"]
         entry.update({f"{phase}_launches": counts[name] for phase, counts in phase_counts.items()})

@@ -318,3 +318,44 @@ def test_dw_sum_takes_the_reference_axis_keyword():
             np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-15, atol=1e-30)
     h0, l0 = tc.dw_sum(torch.tensor(hi), axis=0)
     assert h0.shape == (37,) and l0.shape == (37,)
+
+
+def test_accurate_log_vmap_runs_its_forward_on_the_whole_batch(monkeypatch):
+    """torch.func.vmap hands accurate_log's forward the batch as a plain
+    tensor: a batched tensor there needs a batching rule for
+    ``Tensor.view(dtype)``, which torch 2.11 lacks, and the f32
+    cross-validation scores then fell back to one fold at a time.  Values
+    and gradient equal the unbatched call's."""
+    from torch._C._functorch import is_batchedtensor
+
+    real = tc._accurate_log_values
+
+    def checked(x):
+        if is_batchedtensor(x):
+            raise AssertionError("accurate_log's forward was handed a batched tensor")
+        return real(x)
+
+    monkeypatch.setattr(tc, "_accurate_log_values", checked)
+    x = 0.5 + torch.rand((5, 7), generator=torch.Generator().manual_seed(0))
+    h, l = torch.func.vmap(tc.accurate_log)(x)
+    h0, l0 = real(x)
+    assert torch.equal(h, h0) and torch.equal(l, l0)
+    xr = x.clone().requires_grad_(True)
+    (grad,) = torch.autograd.grad(torch.func.vmap(tc.accurate_log)(xr)[0].sum(), xr)
+    assert torch.equal(grad, 1.0 / x)
+
+
+def test_f32_loo_likelihood_scores_every_fold_in_one_batch(monkeypatch):
+    """The LOO likelihood of an f32 model takes the batched scores (one
+    vmap over the folds), never the fold-by-fold loop."""
+    from albatross_tpu_torch.evaluation import LeaveOneOutLikelihood
+    from albatross_tpu_torch.evaluation import cross_validation
+
+    def fold_by_fold(*args):
+        raise AssertionError("the scores fell back to one fold at a time")
+
+    monkeypatch.setattr(cross_validation, "cross_validated_scores", fold_by_fold)
+    x = np.sort(np.random.default_rng(0).uniform(0.0, 10.0, 48))
+    data = pt.RegressionDataset.create(x, np.sin(x), device="cpu", dtype=torch.float32)
+    model = pt.gp_from_covariance(pt.SquaredExponential(1.0, 1.0) + pt.measurement_only(pt.IndependentNoise(0.1)))
+    assert torch.isfinite(LeaveOneOutLikelihood()(data, model))

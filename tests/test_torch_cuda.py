@@ -849,3 +849,88 @@ def test_2d_layout_and_distributed_sparse_gp_on_a_world_of_one_nccl_rank(cuda, t
         torch.testing.assert_close(q2.variance, q1.variance, rtol=1e-9, atol=1e-12)
     finally:
         dist.destroy_process_group()
+
+
+def test_f32_loo_likelihood_on_cuda_scores_every_fold_in_one_batch(cuda, monkeypatch):
+    """An f32 LOO likelihood and its gradient on the card take the batched
+    scores (one vmap over the folds), never the fold-by-fold loop: torch
+    2.11 has no batching rule for ``Tensor.view(dtype)`` in
+    ``accurate_log``, so it needs its own vmap rule."""
+    from albatross_tpu_torch.evaluation import LeaveOneOutLikelihood, cross_validation
+
+    def fold_by_fold(*args):
+        raise AssertionError("the scores fell back to one fold at a time")
+
+    monkeypatch.setattr(cross_validation, "cross_validated_scores", fold_by_fold)
+    x = np.sort(np.random.default_rng(6).uniform(0.0, 100.0, 3072))
+    data = pt.RegressionDataset.create(x, np.sin(0.3 * x), device=cuda, dtype=torch.float32)
+    model = pt.gp_from_covariance(pt.SquaredExponential(0.5, 1.0) + pt.measurement_only(
+        pt.IndependentNoise(0.3, assume_unique=True)))
+    v = model.get_tunable_parameters().values.clone().requires_grad_(True)
+    (grad,) = torch.autograd.grad(LeaveOneOutLikelihood()(data, model.set_tunable_params(v)), v)
+    assert torch.isfinite(grad).all()
+
+
+RACE_WORLD, RACE_REPEATS = 4, 50
+
+
+def _sparse_value_grad_rank(rank: int, root: str) -> None:
+    """A rank of a gloo world sharing the card: the distributed FITC's
+    value+grad RACE_REPEATS times; writes how many it finished."""
+    import datetime
+    import pickle
+    import traceback
+
+    import torch.distributed as dist
+
+    from albatross_tpu_torch import parallel as par
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{root}/rendezvous", world_size=RACE_WORLD, rank=rank,
+                            timeout=datetime.timedelta(seconds=120))
+    done, error = 0, None
+    try:
+        x = np.sort(np.random.default_rng(5).uniform(0.0, 100.0, 8192)).astype(np.float32)
+        data = pt.RegressionDataset.create(x, np.sin(0.3 * x), dtype=torch.float32)
+        kernel = pt.SquaredExponential(0.2, 1.0) + pt.measurement_only(pt.IndependentNoise(0.3))
+        model = par.distributed_sparse_gp_from_covariance(
+            kernel, par.make_mesh(), inducing_point_strategy=pt.UniformlySpacedInducingPoints(256))
+        for _ in range(RACE_REPEATS):
+            v = model.get_tunable_parameters().values.clone().requires_grad_(True)
+            torch.autograd.grad(-model.set_tunable_params(v).log_likelihood(data), v)
+            done += 1
+    except Exception:  # the test fails with it
+        error = traceback.format_exc()
+    with open(f"{root}/rank{rank}.pkl", "wb") as f:
+        pickle.dump((done, error), f)
+    dist.destroy_process_group()
+
+
+def test_distributed_sparse_value_grad_on_gloo_ranks_sharing_the_card(cuda, tmp_path):
+    """The distributed FITC's value+grad, repeated on a gloo world of 4
+    processes sharing the card: every rank finishes every repeat.  Its
+    backward runs collectives on autograd's device thread; a parameter
+    left on the CPU (the measurement nugget once was) put one on the CPU
+    thread too, in an order that differed between ranks, and gloo aborted
+    the world on the mismatched sizes now and then."""
+    import multiprocessing
+    import os
+    import pickle
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_sparse_value_grad_rank, args=(r, str(tmp_path))) for r in range(RACE_WORLD)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=300)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    results = []
+    for r, p in enumerate(procs):
+        path = tmp_path / f"rank{r}.pkl"
+        assert os.path.exists(path), f"rank {r} wrote no result (exit code {p.exitcode})"
+        with open(path, "rb") as f:
+            results.append(pickle.load(f))
+    assert all(error is None for _, error in results), [error for _, error in results if error]
+    assert [done for done, _ in results] == [RACE_REPEATS] * RACE_WORLD

@@ -18,17 +18,21 @@ REPO = Path(__file__).resolve().parent.parent
 
 def test_import_leaves_jax_out():
     """Every module of the port, found by walking the package (so a module
-    that no __init__ imports is checked too), loads neither JAX nor any
-    module of the JAX package."""
+    that no __init__ imports is checked too), the examples and tutorials
+    included, loads neither JAX nor any module of the JAX package, its
+    top-level ``examples`` and ``tutorials`` included."""
     code = (
         "import importlib, pkgutil, sys, albatross_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(albatross_tpu_torch.__path__, 'albatross_tpu_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "assert {'albatross_tpu_torch.models.ransac', 'albatross_tpu_torch.samplers.ensemble',\n"
-        "        'albatross_tpu_torch.serialize.checkpoint', 'albatross_tpu_torch._native'} <= set(names), names\n"
-        "assert len(names) > 70, names\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'albatross_tpu.'))]\n"
+        "        'albatross_tpu_torch.serialize.checkpoint', 'albatross_tpu_torch._native',\n"
+        "        'albatross_tpu_torch.examples.distributed', 'albatross_tpu_torch.examples.__main__',\n"
+        "        'albatross_tpu_torch.tutorials.tutorial_5_evaluating_uncertainty'} <= set(names), names\n"
+        "assert len(names) > 95, names\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'examples', 'tutorials')\n"
+        "       or m.startswith(('jax.', 'albatross_tpu.', 'examples.', 'tutorials.'))]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
