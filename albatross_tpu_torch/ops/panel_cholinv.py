@@ -24,11 +24,17 @@ where Phi keeps the lower triangle with its diagonal halved and sym(X) =
 ``jnp.linalg.cholesky`` give.  ``_build.BACKWARDS["panel_cholinv"]`` counts
 its calls.
 
-``panel_cholinv_batched`` factors a (W, b, b) stack of panels from one C
-entry (``panel_cholinv_batched_f32``: each launch's grid widened by the
-panel index), the ensemble sampler's counterpart of ``jax.vmap`` over the
-panel factorization; its plain version is ``plain_panel_cholinv`` on the
-stack.  It is forward only.
+``panel_cholinv_batched`` factors a (W, b, b) stack of panels in one
+launch after a memset of its counters (``panel_cholinv_batched_f32``), the
+ensemble sampler's counterpart of ``jax.vmap`` over the panel
+factorization: one persistent grid of one block an SM takes the panels'
+tile steps, row solves, trailing updates and composition blocks from one
+queue, each panel's list in look-ahead order, and each task waits on
+counters in device memory for what it reads (``csrc/panel_cholinv.cu``
+says why, with its times).  Each slice equals ``panel_cholinv``'s output
+bit for bit.  Its plain version is ``plain_panel_cholinv`` on the stack.
+It is forward only; ``batched_plan`` reports the grid and the schedule a
+call takes.
 """
 
 from __future__ import annotations
@@ -73,7 +79,11 @@ def _launch_batched(A: torch.Tensor):
     w, b, _ = A.shape
     U = torch.empty_like(A)
     Wu = torch.empty_like(A)
-    scratch = torch.empty(w * b * b, dtype=A.dtype, device=A.device)
+    # the panels' composition products, then the task queue and each
+    # panel's counters (zeroed by the C entry)
+    lib.panel_cholinv_batched_scratch.restype = ctypes.c_longlong
+    lib.panel_cholinv_batched_scratch.argtypes = [ctypes.c_int, ctypes.c_int]
+    scratch = torch.empty(lib.panel_cholinv_batched_scratch(b, w), dtype=A.dtype, device=A.device)
     fn = lib.panel_cholinv_batched_f32
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -82,6 +92,22 @@ def _launch_batched(A: torch.Tensor):
     _build.count_launch("panel_cholinv_batched")
     _build.check(lib, code, "panel_cholinv_batched kernel")
     return U, Wu
+
+
+def batched_plan(b: int, w: int) -> dict:
+    """What ``panel_cholinv_batched`` launches for a (w, b, b) stack on the
+    current card: the grid's blocks, the blocks a panel's task list was
+    scheduled for, the tasks of a panel and that schedule's estimate of
+    one panel in microseconds."""
+    lib = _build.load("panel_cholinv")
+    fn = lib.panel_cholinv_batched_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
+    blocks, workers, tasks, estimate = ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_double()
+    code = fn(b, w, ctypes.byref(blocks), ctypes.byref(workers), ctypes.byref(tasks), ctypes.byref(estimate))
+    _build.check(lib, code, "panel_cholinv_batched plan")
+    return {"blocks": blocks.value, "blocks_a_panel": workers.value, "tasks": tasks.value,
+            "estimate_us": estimate.value}
 
 
 def panel_cholinv_backward(U, Wu, grad_U, grad_Wu):

@@ -52,7 +52,10 @@ card with a TF32 control and its launches counted.  The sampler phase
 holds the two walker-batched kernel forms (a (16, 8192, 8192) stack of
 training covariances from one gram launch, 16 panels of 1024 from one
 panel call) against their plain versions and, slice by slice, against
-the unbatched kernels, then runs the ensemble sampler through
+the unbatched kernels (the panel form also against the batched library
+pair, and timed over W = 1, 4, 16, the batch the split at N = 28672 takes
+and 32, with the grid and schedule each call launched), then runs the
+ensemble sampler through
 ``ensemble_sampler_from_model`` at N = 8192 with 32 walkers (its batched
 f32 log-probs against the per-walker f64 log_likelihood on the card, with
 a TF32 control, and against the per-walker f32 route; walker-steps/s,
@@ -92,9 +95,10 @@ the gram kernels also beside the card's write floor, a ``fill_`` of a
 buffer of the gram's shape.
 ``--profile`` adds a torch.profiler breakdown of one NLML's device time and
 of one value+grad evaluation's, forward and backward apart, of one
-lazy NLML at N = 57344, of one FITC fit, of one sampler half-step's
-batched evaluation, and of one NLML under the plain, double-word and
-compensated modes.
+lazy NLML at N = 57344, of one FITC fit, of one batched panel call at
+W = 16 by kernel name with the device's idle share between launches, of
+one sampler half-step's batched evaluation, and of one NLML under the
+plain, double-word and compensated modes.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -420,6 +424,22 @@ def ptxas_summary(log: str) -> str:
     return f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers a thread, {spilled} bytes spilled"
 
 
+def ptxas_kernel(log: str, name: str) -> str:
+    """Registers, shared memory and spills of the kernel whose mangled name
+    holds ``name``, from ``-Xptxas -v``: its entry's line and the spills of
+    the device functions compiled with it."""
+    for section in log.split("Compiling entry function '")[1:]:
+        if name not in section.split("'")[0]:
+            continue
+        regs = re.search(r"Used (\d+) registers", section)
+        smem = re.search(r"(\d+) bytes smem", section)
+        stores = sum(int(x) for x in re.findall(r"(\d+) bytes spill stores", section))
+        loads = sum(int(x) for x in re.findall(r"(\d+) bytes spill loads", section))
+        return (f"{name}: {regs.group(1) if regs else '?'} registers a thread, {smem.group(1) if smem else 0} bytes "
+                f"static shared memory, spills {stores} bytes stored / {loads} bytes loaded (with its device functions)")
+    return f"{name}: no ptxas report"
+
+
 def fail(message: str) -> None:
     raise RuntimeError(f"chip_smoke check failed: {message}")
 
@@ -473,6 +493,55 @@ def print_profile(torch, fn, what: str, card: str, evals: int) -> tuple[float, f
     for us, key, count in sorted(rows, reverse=True)[:16]:
         print(f"  {us / 1e3 / evals:9.3f} ms/call  {count // evals:5d} launches/call  {key[:100]}")
     return wall_ms / evals, device_us / 1e3 / evals
+
+
+def print_launch_breakdown(torch, fn, what: str, card: str, calls: int) -> dict:
+    """One call of ``fn`` by kernel name, and the device's idle share
+    between its launches: torch.profiler over ``calls`` back-to-back calls
+    after a warm-up, each kernel's and copy's device time and launches
+    summed by name; the idle share is the part of the span from the first
+    launch's start to the last one's end that no kernel or copy covers,
+    read from the timeline when it holds every launch the sums count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows, launches = [], 0
+    for e in prof.key_averages():
+        if "CUDA" not in str(e.device_type):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            rows.append((us, re.sub(r"\(.*$", "", re.sub(r"^void |\(anonymous namespace\)::", "", e.key)), e.count))
+            launches += e.count
+    if not rows:
+        fail("torch.profiler recorded no device time")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if "CUDA" in str(e.device_type) and e.time_range.end > e.time_range.start)
+    busy_us = sum(us for us, _, _ in rows)
+    line = f"[{card}] launches of {what}, per call over {calls}: {launches / calls:.1f} launches, busy {busy_us / 1e3 / calls:.4f} ms"
+    out = {"busy_ms": busy_us / 1e3 / calls, "launches": launches / calls, "span_ms": None, "idle_share": None}
+    if len(spans) == launches:
+        covered, end = 0.0, spans[0][0]
+        for start, stop in spans:
+            if stop > end:
+                covered += stop - max(start, end)
+                end = stop
+        span = end - spans[0][0]
+        out["span_ms"], out["idle_share"] = span / 1e3 / calls, 1.0 - covered / span
+        line += f", span {span / 1e3 / calls:.4f} ms, device idle share between launches {out['idle_share']:.4f}"
+    else:
+        line += f"; the timeline holds {len(spans)} of the {launches} launches: idle share not measured"
+    print(line)
+    for us, short, count in sorted(rows, reverse=True):
+        print(f"  {us / 1e3 / calls:9.4f} ms/call  {count / calls:6.1f} launches/call  {short[:90]}")
+    return out
 
 
 def bench_model(pt):
@@ -1732,7 +1801,7 @@ def check_mixed(torch, np, pt, _build, card: str) -> dict:
     return {"launches": total}
 
 
-def check_batched_kernels(torch, np, card: str) -> dict:
+def check_batched_kernels(torch, np, card: str, profile: bool) -> dict:
     """The sampler's two batched kernel forms at full width, each against
     its plain batched version and, slice by slice, against the unbatched
     kernel (bit-equality printed; the gram's and the panel's tolerances
@@ -1801,26 +1870,63 @@ def check_batched_kernels(torch, np, card: str) -> dict:
           f"the unbatched kernel: {equal}")
     if not (rel <= PANEL_PLAIN_TOL and slice_rel <= PANEL_PLAIN_TOL):
         fail(f"batched panel disagrees: plain {rel}, unbatched {slice_rel}")
-    bad, slot = A.clone(), W_KERNEL // 2
-    bad[slot, 5, 5] = -1.0
+    bad, slots = A.clone(), [0, W_KERNEL // 2, W_KERNEL - 1]
+    for slot in slots:
+        bad[slot, 5, 5] = -1.0
     nan_slots = [w for w in range(W_KERNEL) if torch.isnan(panel_cholinv_batched(bad)[0][w]).any().item()]
-    print(f"panel batched: a non-SPD panel in slot {slot} gives NaN in slots {nan_slots}")
-    if nan_slots != [slot]:
+    print(f"panel batched: non-SPD panels in slots {slots} give NaN in slots {nan_slots}")
+    if nan_slots != slots:
         fail(f"a non-SPD panel's NaN reached slots {nan_slots}")
     single_bound, _ = panel_bound(B_SAMPLER)
+    eye = torch.eye(B_SAMPLER, dtype=A.dtype, device=dev)
     results["panel_cholinv_batched"] = {
         "max_abs_err": abs_err,
         "ms": cuda_ms(torch, lambda: panel_cholinv_batched(A)),
         "plain_ms": cuda_ms(torch, lambda: plain_panel_cholinv(A)),
         "bound_ms": W_KERNEL * single_bound, "bound_by": "operations",
+        # the batched library pair: cuSOLVER's potrf, then a trsm against the identity
+        "library_two_call_ms": cuda_ms(torch, lambda: torch.linalg.solve_triangular(
+            torch.linalg.cholesky(A), eye, upper=False)),
     }
     results["panel_cholinv_batched"]["single_ms"] = cuda_ms(torch, lambda: panel_cholinv(A[0].contiguous()))
+    if profile:
+        print_launch_breakdown(torch, lambda: panel_cholinv_batched(A),
+                               f"panel_cholinv_batched ({W_KERNEL}, {B_SAMPLER}, {B_SAMPLER})", card, 10)
     for name, r in results.items():
         print(f"[{card}] {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bound_ms'] / r['ms']:.1%} of it)")
-    print(f"[{card}] panel_cholinv one panel of the stack alone: {results['panel_cholinv_batched']['single_ms']:.4f} "
-          f"ms, so {W_KERNEL} in turn {W_KERNEL * results['panel_cholinv_batched']['single_ms']:.4f} ms")
+    r = results["panel_cholinv_batched"]
+    print(f"[{card}] panel_cholinv_batched ({W_KERNEL}, {B_SAMPLER}, {B_SAMPLER}): the batched library pair "
+          f"(torch.linalg.cholesky + solve_triangular against the identity) {r['library_two_call_ms']:.4f} ms; "
+          f"one panel of the stack alone through panel_cholinv {r['single_ms']:.4f} ms, so {W_KERNEL} in turn "
+          f"{W_KERNEL * r['single_ms']:.4f} ms")
+    r["sweep"] = batched_panel_sweep(torch, card, g, dev, single_bound, r["single_ms"])
     return results
+
+
+def batched_panel_sweep(torch, card: str, g, dev, single_bound: float, single_ms: float) -> list:
+    """The batched panel kernel at b = B_SAMPLER over the batch sizes of its
+    callers: one walker, a gloo rank's 4, the sampler's half of 16, the
+    batch the split at the main path's N takes, and 32; each timed beside
+    its bound with the plan it launched (W = 1 also beside the single-panel
+    kernel, as a reading: the single panel does not take this route)."""
+    from albatross_tpu_torch.ops.batched_nlml import walkers_per_batch
+    from albatross_tpu_torch.ops.panel_cholinv import batched_plan, panel_cholinv_batched
+
+    split = walkers_per_batch(W_SAMPLER, N, 4, dev)
+    rows = []
+    for w in sorted({1, 4, W_KERNEL, split, 2 * W_KERNEL}):
+        M = torch.randn((w, B_SAMPLER, B_SAMPLER), generator=g, dtype=torch.float64)
+        A = (M @ M.mT + B_SAMPLER * torch.eye(B_SAMPLER, dtype=torch.float64)).float().to(dev)
+        del M
+        ms = cuda_ms(torch, lambda: panel_cholinv_batched(A))
+        row = {"w": w, "ms": ms, "bound_ms": w * single_bound, "plan": batched_plan(B_SAMPLER, w)}
+        rows.append(row)
+        print(f"[{card}] panel_cholinv_batched W={w}{' (the split at N=%d)' % N if w == split else ''}: {ms:.4f} ms, "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_ms'] / ms:.1%} of it); plan {row['plan']}"
+              + (f"; the single-panel kernel {single_ms:.4f} ms" if w == 1 else ""))
+        del A
+    return rows
 
 
 def check_sampler(torch, np, pt, _build, card: str, args) -> dict:
@@ -2812,6 +2918,8 @@ def main() -> int:
     for name in _build.KERNELS:
         seconds, log = _build.build_info(name)
         print(f"build {name}: {seconds:.1f} s; {ptxas_summary(log)}")
+        if name == "panel_cholinv":
+            print(f"  {ptxas_kernel(log, 'panel_cholinv_tasks')}")
     print(f"kernel build total: {time.perf_counter() - t0:.1f} s")
 
     rng = np.random.default_rng(SEED)
@@ -3095,7 +3203,7 @@ def main() -> int:
         "mixed": check_mixed(torch, np, pt, _build, card)["launches"],
     }
     # -- the ensemble sampler: the walker-batched kernel forms --------------
-    results.update(check_batched_kernels(torch, np, card))
+    results.update(check_batched_kernels(torch, np, card, args.profile))
     sampler = check_sampler(torch, np, pt, _build, card, args)
     phase_counts["sampler"] = sampler["launches"]
     phase_counts["sampler_bench"] = sampler["bench_launches"]

@@ -174,6 +174,30 @@ def test_panel_kernel_matches_f64(cuda, b):
     assert torch.equal(torch.tril(Wu, -1), torch.zeros_like(Wu))
 
 
+# sha256 of U's then Wu's f32 bytes from the single-panel kernel as it was
+# before the batched kernel shared its device functions (read on an NVIDIA
+# H100 80GB HBM3 from the earlier source, built beside the new one): the
+# single panel's launch sequence must still give these bits
+SINGLE_PANEL_BITS = {
+    128: "70030c8fd06e942bda4cfc8c026d037241a10c51194c1576b18203a25def4d61",
+    640: "e4b6319b92910baf046392374f46895b15e0cdb8e0ed8061ef0f7dd4cd6526e3",
+    1024: "4ee85e8943d76a717d87abc9bacbacf1a44882a258ec020a92d73705a856f355",
+}
+
+
+@pytest.mark.parametrize("b", sorted(SINGLE_PANEL_BITS))
+def test_panel_kernel_keeps_its_bits(cuda, b):
+    """An integer panel M M^T + b I (exact in f32, the same on every
+    machine) through panel_cholinv gives the bits recorded above."""
+    import hashlib
+
+    M = np.random.default_rng(b).integers(-2, 3, size=(b, b)).astype(np.float64)
+    A = torch.as_tensor(M @ M.T + b * np.eye(b), dtype=torch.float32, device=cuda)
+    U, Wu = panel_cholinv(A)
+    digest = hashlib.sha256(U.cpu().numpy().tobytes() + Wu.cpu().numpy().tobytes()).hexdigest()
+    assert digest == SINGLE_PANEL_BITS[b]
+
+
 def test_panel_kernel_guards_and_nan(cuda):
     with pytest.raises(ValueError, match="b % 128"):
         panel_cholinv(torch.eye(100, device=cuda))
@@ -646,7 +670,9 @@ def test_batched_gram_matches_plain_and_the_unbatched_kernel(cuda, profile, dtyp
         radial_gram_diag_batched(x, ls, sigma, diag[:, :-1], profile)
 
 
-@pytest.mark.parametrize("w, b", [(3, 128), (2, 256), (5, 640), (4, 1024)])
+# one panel, and stacks of more panels than the grid's blocks take at once
+# (40 x 256, 33 x 1024: the queue hands every block tasks of many panels)
+@pytest.mark.parametrize("w, b", [(3, 128), (2, 256), (5, 640), (4, 1024), (1, 1024), (40, 256), (33, 1024)])
 def test_batched_panel_matches_the_unbatched_kernel_and_isolates_nan(cuda, w, b):
     g = torch.Generator().manual_seed(b)
     M = torch.randn((w, b, b), generator=g, dtype=torch.float64)
@@ -660,9 +686,11 @@ def test_batched_panel_matches_the_unbatched_kernel_and_isolates_nan(cuda, w, b)
         assert torch.equal(U[i], Ui) and torch.equal(Wu[i], Wi)
         assert (U[i] - Up[i]).abs().max() <= 5e-6 * Up[i].abs().max()
         assert (Wu[i] - Wp[i]).abs().max() <= 5e-6 * Wp[i].abs().max()
-    A[w // 2, 5, 5] = -1.0
+    bad = {0, w // 2, w - 1}  # the first, middle and last slots
+    for i in bad:
+        A[i, 5, 5] = -1.0
     U, _ = panel_cholinv_batched(A)
-    assert [bool(torch.isnan(U[i]).any()) for i in range(w)] == [i == w // 2 for i in range(w)]
+    assert [bool(torch.isnan(U[i]).any()) for i in range(w)] == [i in bad for i in range(w)]
     with pytest.raises(TypeError, match="f32"):
         panel_cholinv_batched(A.double())
     with pytest.raises(RuntimeError, match="forward only"):
