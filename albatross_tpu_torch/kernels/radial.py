@@ -113,10 +113,21 @@ class _RadialKernel(CovarianceFunction):
         return radial_gram(X, Y, ls, sigma, self._profile_name)
 
     def _symmetric_exact(self, X):
-        """Euclidean grams are exact elementwise sums at every D (kernel
-        and plain version alike), radial distances are norm differences;
-        the angular metric's and a user metric's products are not
-        transpose-exact, so __call__ symmetrizes them."""
+        """Euclidean grams of X against itself are bitwise symmetric: below
+        D = 8 (and in f64, and on the CPU) as exact elementwise sums; in
+        the kernel's f32 tensor-core branch at D >= 8, whose contraction is
+        not transpose-exact, because a call with one tensor on both sides
+        (``__call__`` and ``matrix_or_none(X, X)``, the fused training
+        covariance, the lazy loop's column blocks) computes the tiles
+        I >= J of K(X, X) and writes each twice (its mirror), and
+        ``tagged_gram`` takes a batch's block (b, a) against itself as the
+        transpose of (a, b).  The claim covers those callers only: the
+        sharded grams of ``parallel/`` build a rank's rows by the cross
+        form on two distinct batches, symmetric at D >= 8 only to the
+        contraction's rounding (their factorizations read the lower block
+        triangle).  Radial distances are norm differences; the angular
+        metric's and a user metric's products are not transpose-exact, so
+        __call__ symmetrizes them."""
         return isinstance(self.distance_metric, (EuclideanDistance, RadialDistance))
 
     def _diag(self, X, x_meas):

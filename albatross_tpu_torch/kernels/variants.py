@@ -146,11 +146,22 @@ def tagged_gram(kernel: CovarianceFunction, X: TaggedBatch, Y, x_meas, y_meas):
     """The covariance over tagged batches from per-tag-pair blocks, with a
     zero block where a pair is undefined, in interleaved order (one
     index_select an axis).  A zero block takes the dtype and device of the
-    computed blocks."""
+    computed blocks.  K(X, X) (Y the same batch, the same measurement
+    flag) computes the blocks (a, b) with a >= b and takes (b, a) as the
+    transpose of (a, b), so it is bitwise symmetric wherever each block
+    (a, a) is, whatever the cross blocks' arithmetic."""
     y_tagged = isinstance(Y, TaggedBatch)
     y_items = list(zip(Y.tags, Y.features)) if y_tagged else [(None, Y)]
-    blocks = [[kernel._tagged_matrix(fx, fy, tx, ty, x_meas, y_meas) for ty, fy in y_items]
-              for tx, fx in zip(X.tags, X.features)]
+    x_items = list(zip(X.tags, X.features))
+    if Y is X and x_meas == y_meas:
+        blocks = [[kernel._tagged_matrix(fx, fy, tx, ty, x_meas, y_meas) if b <= a else None
+                   for b, (ty, fy) in enumerate(y_items)] for a, (tx, fx) in enumerate(x_items)]
+        for a in range(len(x_items)):
+            for b in range(a + 1, len(x_items)):
+                blocks[a][b] = None if blocks[b][a] is None else blocks[b][a].T
+    else:
+        blocks = [[kernel._tagged_matrix(fx, fy, tx, ty, x_meas, y_meas) for ty, fy in y_items]
+                  for tx, fx in x_items]
     like = next((b for row in blocks for b in row if b is not None), None)
     like = float_like(X) if like is None else {"dtype": like.dtype, "device": like.device}
     rows = []

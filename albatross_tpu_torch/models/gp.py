@@ -260,9 +260,12 @@ class GaussianProcess(ModelBase):
     def _training_cov_fused_pieces(self, measurements):
         """``(x2, ls, sigma, diag_add, profile)`` when the training
         covariance is one radial term + diagonal-only noise over one (N,) or
-        (N, D <= 8) feature tensor -- the pattern the lazy-gram loop builds
-        column by column -- else None.  D > 8 stays on the materialized
-        path, as in the JAX package."""
+        (N, D) feature tensor -- the pattern the lazy-gram loop builds
+        column by column -- else None.  The JAX package keeps D > 8 on the
+        materialized path because its closed-form column builder would
+        cancel there; the port's column producer is the gram kernel, whose
+        high-D column blocks equal the materialized covariance's entries bit
+        for bit (and exact sums on the CPU), so every D takes the loop."""
         if not isinstance(measurements, Measurement):
             return None
         matched = match_fused_training_cov(self.covariance_function, for_measurements=True)
@@ -270,8 +273,6 @@ class GaussianProcess(ModelBase):
         if matched is None or not isinstance(x, torch.Tensor) or x.ndim > 2:
             return None
         x2 = x[:, None] if x.ndim == 1 else x
-        if x2.shape[-1] > 8:
-            return None
         radial, ls, sigma, diag_scalar = matched
         return x2, ls, sigma, diag_scalar + self.jitter, radial._profile_name
 

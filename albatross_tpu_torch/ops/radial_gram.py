@@ -17,13 +17,34 @@ scale, sigma and diagonal, read from device tensors, from one launch (the
 counterpart of ``jax.vmap`` over the JAX package's ``pallas_call``, whose
 kernel reads its scalars from ``params_ref``).  It is forward only.
 
+The high-D branch: f32 inputs with D >= ``MXU_MIN_D`` (8, the TPU kernel's
+``_MXU_MIN_D``) take the kernel's tensor-core form in every launch form,
+counted apart (``<counter>_highd``): per 128 x 128 tile pair, a 3xTF32
+contraction of centred coordinates, and an exact elementwise recompute of
+any tile whose smallest d^2 lies inside the profile's support
+(``_REFINE_D2_OVER_LS2``), as the JAX package's ``_gram_kernel`` does at
+D >= 8 on its matrix unit.  K(x, x) -- the same tensor on both sides --
+is mirrored (tiles I >= J, each written twice), so it is bitwise
+symmetric; column blocks and walker slices follow the same global grid and
+equal it bit for bit.  ``plain_radial_gram_tiled`` is that branch's plain
+version in torch ops (the tests and ``chip_smoke.py`` hold the kernel to
+it); CPU tensors keep the exact closed form at every D, and f64 keeps the
+kernel's exact elementwise loop.
+
 Gradients: when an input requires grad, the CUDA forward is wrapped in a
 ``torch.autograd.Function`` whose backward differentiates the plain closed
 form, as the JAX package's custom VJP (``_fused_bwd`` / ``_fused_diag_bwd``)
 differentiates its XLA closed form: the TPU kernels have no backward kernel.
 On the NLML's value+grad path the backward rebuilds the (N, N) closed form
-with autograd, about five N x N temporaries at its peak.  CPU tensors take
-the closed form and autograd directly.  Host-side reads of the scalars
+with autograd, about five N x N temporaries at its peak.  In the high-D
+branch, when neither X nor Y requires grad, the backward launches the
+kernel again in its squared-distance mode (profile id 4: the refined d^2
+itself, counted as ``radial_gram_d2_highd``), a block of about 2^25
+entries at a time on the global tile grid, and differentiates only the
+profile on each block plus the diagonal, instead of the closed form's
+chunked (rows, M, D) difference tensors; it holds no second N x N
+buffer.  CPU tensors take the closed form and
+autograd directly.  Host-side reads of the scalars
 (``host_float``) detach them first, so a parameter that requires grad is
 read without a warning; the column producer takes them read once by its
 caller, not once a panel.
@@ -42,8 +63,20 @@ from ..kernels.distances import as_matrix
 
 PROFILES = ("squared_exponential", "exponential", "matern_32", "matern_52")
 _PROFILE_ID = {p: i for i, p in enumerate(PROFILES)}
-# bound on the plain version's (rows, M, D) difference tensor
+_SQUARED_DISTANCE_ID = 4  # the kernel writes the refined d^2 (the high-D backward's input)
+# f32 feature count from which the kernel contracts on the tensor cores
+# (the TPU kernel's _MXU_MIN_D): a constant, not a knob
+MXU_MIN_D = 8
+# Largest (d / ls)^2 where a profile is still above ~1e-3 sigma^2: a tile
+# whose smallest d^2 is at most this times ls^2 is recomputed exactly (the
+# JAX package's _REFINE_D2_OVER_LS2: SE e^{-x^2} < 1e-3 at x^2 = 7, the
+# exponential at x = 6.9, the Materns decay slower)
+_REFINE_D2_OVER_LS2 = {"squared_exponential": 7.0, "exponential": 48.0, "matern_32": 81.0, "matern_52": 81.0}
+_TILE = 128  # the high-D branch's tile edge
+# bound on the plain version's (rows, M, D) difference tensor, and on each
+# block of squared distances the high-D backward launches (128 MiB in f32)
 _PLAIN_CHUNK_ELEMENTS = 1 << 25
+_D2_BLOCK_ELEMENTS = 1 << 25
 
 
 def apply_profile(profile: str, d2, length_scale, sigma):
@@ -91,6 +124,84 @@ def plain_radial_gram(X, Y, length_scale, sigma, profile: str, diag_add=None):
     return out
 
 
+def _same_tensor(X, Y) -> bool:
+    """True when X and Y are one matrix (the symmetric K(x, x)): the same
+    object, or views of the same memory with the same shape and strides."""
+    return X is Y or (X.data_ptr() == Y.data_ptr() and X.shape == Y.shape and X.stride() == Y.stride())
+
+
+def _edge_tiles(A, tile: int):
+    """(tiles, tile, D) rows of A, the last tile filled by repeating A's
+    last row (the JAX package's ``_pad_rows(edge=True)``: a tile's centre
+    stays at its data)."""
+    n = A.shape[0]
+    padded = -(-n // tile) * tile
+    if padded != n:
+        A = torch.cat([A, A[-1:].expand(padded - n, -1)])
+    return A.reshape(padded // tile, tile, A.shape[1])
+
+
+def tiled_squared_distances(X, Y, length_scale, profile: str, tile: int = _TILE):
+    """(d2, refined): the high-D branch's squared distances, (N, M), and
+    which (row tile, column tile) pairs it recomputed exactly, a bool
+    (ceil(N / tile), ceil(M / tile)) tensor on the CPU.
+
+    The JAX package's ``_gram_kernel`` at D >= 8 in torch ops: for each
+    tile pair, c = (mean of the x tile + mean of the y tile) / 2 (ragged
+    tiles edge-padded), d^2 = max(|x - c|^2 + |y - c|^2 - 2 (x - c).(y - c),
+    0) by a full-f32 ``torch.matmul``; a tile whose smallest d^2 (over its
+    entries inside the matrix) is at most ``_REFINE_D2_OVER_LS2[profile] *
+    ls^2`` is recomputed exactly by ``_plain_d2``.  K(x, x) (X and Y one
+    matrix) computes the tiles I >= J, always recomputes the diagonal tiles
+    and mirrors the rest, as the kernel does."""
+    X, Y = as_matrix(X), as_matrix(Y)
+    n, m = X.shape[0], Y.shape[0]
+    symmetric = _same_tensor(X, Y)
+    xt, yt = _edge_tiles(X, tile), _edge_tiles(Y, tile)
+    nt, mt = xt.shape[0], yt.shape[0]
+    mx, my = xt.mean(dim=1), yt.mean(dim=1)
+    ls = torch.as_tensor(length_scale, dtype=X.dtype, device=X.device)
+    cut = _REFINE_D2_OVER_LS2[profile] * ls * ls
+    d2 = torch.empty((nt * tile, mt * tile), dtype=X.dtype, device=X.device)
+    refined = torch.zeros((nt, mt), dtype=torch.bool)
+    for i in range(nt):
+        tiles = i + 1 if symmetric else mt
+        c = 0.5 * (mx[i] + my[:tiles])
+        xc = xt[i][None] - c[:, None, :]
+        yc = yt[:tiles] - c[:, None, :]
+        x2 = torch.sum(xc * xc, dim=-1)
+        y2 = torch.sum(yc * yc, dim=-1)
+        block = torch.clamp_min(x2[:, :, None] + y2[:, None, :] - 2.0 * torch.matmul(xc, yc.transpose(1, 2)), 0.0)
+        inside = block[:, :min(tile, n - i * tile)].clone()
+        if tiles * tile > m:
+            inside[-1, :, m - (tiles - 1) * tile:] = math.inf
+        refine = (torch.amin(inside, dim=(1, 2)) <= cut).cpu()
+        if symmetric:
+            refine[i] = True
+        rows = slice(i * tile, (i + 1) * tile)
+        d2[rows, :tiles * tile] = block.transpose(0, 1).reshape(tile, tiles * tile)
+        for j in torch.nonzero(refine)[:, 0].tolist():
+            r1, c1 = min(n, (i + 1) * tile), min(m, (j + 1) * tile)
+            d2[i * tile:r1, j * tile:c1] = _plain_d2(X[i * tile:r1], Y[j * tile:c1])
+        refined[i, :tiles] = refine
+    if symmetric:
+        upper = torch.triu(torch.ones((nt, nt), dtype=torch.bool, device=X.device), 1)
+        d2 = torch.where(upper.repeat_interleave(tile, 0).repeat_interleave(tile, 1), d2.T, d2)
+        refined = refined | refined.T
+    return d2[:n, :m].contiguous(), refined
+
+
+def plain_radial_gram_tiled(X, Y, length_scale, sigma, profile: str, diag_add=None, tile: int = _TILE):
+    """The high-D branch's plain version: the profile of
+    ``tiled_squared_distances`` (+ ``diag_add`` on the leading diagonal).
+    Used by the tests and by ``chip_smoke.py``'s checks; the CPU path of
+    ``radial_gram`` stays the exact ``plain_radial_gram``."""
+    out = apply_profile(profile, tiled_squared_distances(X, Y, length_scale, profile, tile)[0], length_scale, sigma)
+    if diag_add is not None:
+        out.diagonal().add_(diag_add.to(out.dtype))
+    return out
+
+
 def plain_radial_gram_diag_batched(x, length_scales, sigmas, diag, profile: str):
     """The batched kernel's plain version: slice w of the (W, N, N) result
     is ``plain_radial_gram(x, x, length_scales[w], sigmas[w], profile,
@@ -102,29 +213,129 @@ def plain_radial_gram_diag_batched(x, length_scales, sigmas, diag, profile: str)
     return out
 
 
-def _launch(X, Y, length_scale: float, sigma: float, diag, profile: str, counter: str):
+def _highd(X) -> bool:
+    """f32 at D >= MXU_MIN_D: the kernel's tensor-core branch."""
+    return X.dtype == torch.float32 and X.shape[1] >= MXU_MIN_D
+
+
+def _sym_tiles(n: int, j0: int, b: int) -> int:
+    """Lower tiles of the global 128-grid meeting rows [j0, n) x columns
+    [j0, j0 + b) of K(x, x): the symmetric launch's grid, as the C code
+    counts it."""
+    row_tiles = -(-n // _TILE) - j0 // _TILE
+    cols = (j0 + b - 1) // _TILE - j0 // _TILE + 1
+    return cols * row_tiles - cols * (cols - 1) // 2
+
+
+def _work(entries: int, device):
+    """Device scratch for the high-D launch's list of near tiles: a counter
+    and at most ``entries`` tile indices (8-byte words)."""
+    return torch.empty((1 + entries,), dtype=torch.int64, device=device)
+
+
+def _launch(X, Y, length_scale: float, sigma: float, diag, profile: str, counter: str, cols=None,
+            squared_distance: bool = False):
+    """One launch of the kernel, (N, M) out.  ``cols`` = (x, j0, b) when X
+    and Y are x[j0:] and x[j0:j0 + b] (the lazy loop's column block); in the
+    high-D branch the launch then follows x's global tile grid, and
+    ``squared_distance`` writes the refined d^2 (diag must be None)."""
     lib = _build.load("radial_gram")
     n, d = X.shape
     m = Y.shape[0]
     out = torch.empty((n, m), dtype=X.dtype, device=X.device)
-    if X.dtype == torch.float32:
-        fn, scalar = lib.radial_gram_f32, ctypes.c_float
-    else:
-        fn, scalar = lib.radial_gram_f64, ctypes.c_double
-    fn.restype = ctypes.c_int
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, scalar, scalar,
-        ctypes.c_int, ctypes.c_void_p,
-    ]
     stream = torch.cuda.current_stream(X.device).cuda_stream
-    code = fn(
-        X.data_ptr(), Y.data_ptr(), None if diag is None else diag.data_ptr(),
-        out.data_ptr(), n, m, d, length_scale, sigma, _PROFILE_ID[profile], stream,
-    )
+    diag_ptr = None if diag is None else diag.data_ptr()
+    if _highd(X):
+        profile_id = _SQUARED_DISTANCE_ID if squared_distance else _PROFILE_ID[profile]
+        ratio = _REFINE_D2_OVER_LS2[profile]
+        scalars = [ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        if cols is not None or _same_tensor(X, Y):
+            x, j0, b = cols if cols is not None else (X, 0, n)
+            work = _work(_sym_tiles(x.shape[0], j0, b), X.device)
+            fn = lib.radial_gram_highd_sym_f32
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+                                                   *scalars]
+            code = fn(x.data_ptr(), diag_ptr, out.data_ptr(), x.shape[0], d, j0, b, length_scale, sigma, ratio,
+                      profile_id, work.data_ptr(), stream)
+        else:
+            work = _work(-(-n // _TILE) * -(-m // _TILE), X.device)
+            fn = lib.radial_gram_highd_f32
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, *scalars]
+            code = fn(X.data_ptr(), Y.data_ptr(), diag_ptr, out.data_ptr(), n, m, d, length_scale, sigma, ratio,
+                      profile_id, work.data_ptr(), stream)
+        fn.restype = ctypes.c_int
+        counter += "_highd"
+    else:
+        if X.dtype == torch.float32:
+            fn, scalar = lib.radial_gram_f32, ctypes.c_float
+        else:
+            fn, scalar = lib.radial_gram_f64, ctypes.c_double
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int, scalar, scalar,
+            ctypes.c_int, ctypes.c_void_p,
+        ]
+        code = fn(X.data_ptr(), Y.data_ptr(), diag_ptr, out.data_ptr(), n, m, d, length_scale, sigma,
+                  _PROFILE_ID[profile], stream)
     _build.count_launch(counter)
-    _build.check(lib, code, "radial_gram kernel")
+    _build.check(lib, code, f"{counter} kernel")
     return out
+
+
+def _kernel_d2_backward(X, needs) -> bool:
+    """Whether the backward differentiates the profile on the kernel's
+    refined d^2 (the high-D branch, X and Y not requiring grad) rather than
+    the closed form."""
+    return _highd(X) and not (needs[0] or needs[1])
+
+
+def d2_block_width(n: int, m: int) -> int:
+    """Rows (cross form) or columns (K(x, x)) of each block of squared
+    distances the high-D backward launches for an (n, m) output: a multiple
+    of 128, so each block keeps the global tile grid, with at most about
+    ``_D2_BLOCK_ELEMENTS`` entries."""
+    return max(_TILE, _D2_BLOCK_ELEMENTS // max(1, m) // _TILE * _TILE)
+
+
+def _d2_profile_grads(X, Y, grad_out, ls, sigma, ls_value: float, profile: str, cols):
+    """(d ls, d sigma) of sum(grad_out * profile(d2)) over the kernel's
+    refined d^2, taken a block at a time (``d2_block_width``), so the
+    backward holds no second output-sized buffer: the cross form by row
+    blocks of X; K(x, x) by column blocks of the global grid, rows j0..N
+    (the lazy loop's column form), each weighted by its columns of
+    grad_out plus, below the leading block, the mirrored rows' (d^2 is
+    bitwise symmetric); a lazy column block, whose output is already one
+    such block, in one launch.  Entries of ls, sigma that need no grad are
+    None."""
+    wanted = [t for t in (ls, sigma) if t.requires_grad]
+    if not wanted:
+        return None, None
+    total = [torch.zeros_like(t) for t in wanted]
+
+    def add(d2, weight):
+        out = apply_profile(profile, d2, ls, sigma)
+        for acc, g in zip(total, torch.autograd.grad(out, wanted, weight)):
+            acc.add_(g)
+
+    n, m = grad_out.shape
+    if cols is not None:
+        add(_launch(X, Y, ls_value, 1.0, None, profile, "radial_gram_d2", cols, squared_distance=True), grad_out)
+    elif _same_tensor(X, Y):
+        width = d2_block_width(n, n)
+        for j0 in range(0, n, width):
+            j1 = min(n, j0 + width)
+            weight = grad_out[j0:, j0:j1].clone()
+            weight[j1 - j0:] += grad_out[j0:j1, j1:].T
+            add(_launch(X[j0:], X[j0:j1], ls_value, 1.0, None, profile, "radial_gram_d2", (X, j0, j1 - j0),
+                        squared_distance=True), weight)
+    else:
+        height = d2_block_width(n, m)
+        for i0 in range(0, n, height):
+            add(_launch(X[i0:i0 + height], Y, ls_value, 1.0, None, profile, "radial_gram_d2",
+                        squared_distance=True), grad_out[i0:i0 + height])
+    grads = iter(total)
+    return tuple(next(grads) if t.requires_grad else None for t in (ls, sigma))
 
 
 class _RadialGramFunction(torch.autograd.Function):
@@ -133,26 +344,31 @@ class _RadialGramFunction(torch.autograd.Function):
     forward reads nothing back from the device."""
 
     @staticmethod
-    def forward(ctx, X, Y, length_scale, sigma, diag, profile, ls_value, sigma_value, counter):
+    def forward(ctx, X, Y, length_scale, sigma, diag, profile, ls_value, sigma_value, counter, cols):
         # the inputs only, never the output: the lazy-gram loop subtracts
         # in place on it (ops/blocked_cholesky.py _TrailingUpdate)
-        ctx.profile = profile
+        ctx.profile, ctx.ls_value, ctx.cols = profile, ls_value, cols
         ctx.save_for_backward(X, Y, length_scale, sigma, diag)
-        return _launch(X, Y, ls_value, sigma_value, diag, profile, counter)
+        return _launch(X, Y, ls_value, sigma_value, diag, profile, counter, cols)
 
     @staticmethod
     def backward(ctx, grad_out):
         saved = ctx.saved_tensors
-        inputs = [None if t is None else t.detach().requires_grad_(need)
-                  for t, need in zip(saved, ctx.needs_input_grad)]
-        wanted = [t for t, need in zip(inputs, ctx.needs_input_grad) if need and t is not None]
+        needs = ctx.needs_input_grad[:5]
+        inputs = [None if t is None else t.detach().requires_grad_(need) for t, need in zip(saved, needs)]
+        wanted = [t for t, need in zip(inputs, needs) if need and t is not None]
+        X, Y, ls, sigma, diag = inputs
+        if _kernel_d2_backward(X, needs):
+            # the kernel's refined d^2, block by block: only the profile is differentiated
+            with torch.enable_grad():
+                g_ls, g_sigma = _d2_profile_grads(X, Y, grad_out, ls, sigma, ctx.ls_value, ctx.profile, ctx.cols)
+            g_diag = grad_out.diagonal().clone() if needs[4] else None
+            return (None, None, g_ls, g_sigma, g_diag, None, None, None, None, None)
         with torch.enable_grad():
-            out = plain_radial_gram(inputs[0], inputs[1], inputs[2], inputs[3],
-                                    ctx.profile, inputs[4])
+            out = plain_radial_gram(X, Y, ls, sigma, ctx.profile, diag)
         grads = iter(torch.autograd.grad(out, wanted, grad_out, allow_unused=True))
-        result = [next(grads) if need and t is not None else None
-                  for t, need in zip(inputs, ctx.needs_input_grad)]
-        return (*result, None, None, None, None)
+        result = [next(grads) if need and t is not None else None for t, need in zip(inputs, needs)]
+        return (*result, None, None, None, None, None)
 
 
 def _check_cuda_inputs(X, Y, diag):
@@ -177,7 +393,7 @@ def _check_cuda_inputs(X, Y, diag):
             raise ValueError("radial_gram kernel needs a contiguous diag_add")
 
 
-def _gram(X, Y, length_scale, sigma, profile, diag_add, counter, host_scalars=None):
+def _gram(X, Y, length_scale, sigma, profile, diag_add, counter, host_scalars=None, cols=None):
     if not (X.is_cuda or Y.is_cuda):
         return plain_radial_gram(X, Y, length_scale, sigma, profile, diag_add)
     _check_cuda_inputs(X, Y, diag_add)
@@ -186,10 +402,10 @@ def _gram(X, Y, length_scale, sigma, profile, diag_add, counter, host_scalars=No
     inputs = (X, Y, length_scale, sigma, diag_add)
     if not (torch.is_grad_enabled()
             and any(isinstance(t, torch.Tensor) and t.requires_grad for t in inputs)):
-        return _launch(X, Y, *host_scalars, diag_add, profile, counter)
+        return _launch(X, Y, *host_scalars, diag_add, profile, counter, cols)
     ls = torch.as_tensor(length_scale, dtype=X.dtype, device=X.device)
     sg = torch.as_tensor(sigma, dtype=X.dtype, device=X.device)
-    return _RadialGramFunction.apply(X, Y, ls, sg, diag_add, profile, *host_scalars, counter)
+    return _RadialGramFunction.apply(X, Y, ls, sg, diag_add, profile, *host_scalars, counter, cols)
 
 
 def radial_gram(X, Y, length_scale, sigma, profile: str = "squared_exponential", diag_add=None):
@@ -210,15 +426,25 @@ def _launch_diag_batched(X, length_scales, sigmas, diag, profile: str):
     n, d = X.shape
     w = length_scales.shape[0]
     out = torch.empty((w, n, n), dtype=X.dtype, device=X.device)
-    fn = lib.radial_gram_diag_batched_f32 if X.dtype == torch.float32 else lib.radial_gram_diag_batched_f64
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
-                                           ctypes.c_void_p]
     stream = torch.cuda.current_stream(X.device).cuda_stream
-    code = fn(X.data_ptr(), length_scales.data_ptr(), sigmas.data_ptr(), diag.data_ptr(), out.data_ptr(),
-              n, d, w, _PROFILE_ID[profile], stream)
-    _build.count_launch("radial_gram_diag_batched")
-    _build.check(lib, code, "radial_gram_diag_batched kernel")
+    pointers = (X.data_ptr(), length_scales.data_ptr(), sigmas.data_ptr(), diag.data_ptr(), out.data_ptr())
+    counter = "radial_gram_diag_batched"
+    if _highd(X):
+        work = _work(w * _sym_tiles(n, 0, n), X.device)
+        fn = lib.radial_gram_highd_batched_f32
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_float,
+                                               ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        code = fn(*pointers, n, d, w, _REFINE_D2_OVER_LS2[profile], _PROFILE_ID[profile], work.data_ptr(), stream)
+        counter += "_highd"
+    else:
+        fn = lib.radial_gram_diag_batched_f32 if X.dtype == torch.float32 else lib.radial_gram_diag_batched_f64
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+                                               ctypes.c_void_p]
+        code = fn(*pointers, n, d, w, _PROFILE_ID[profile], stream)
+    _build.count_launch(counter)
+    _build.check(lib, code, f"{counter} kernel")
     return out
 
 
@@ -232,7 +458,9 @@ def radial_gram_diag_batched(x, length_scales, sigmas, diag, profile: str = "squ
     diag_add=diag[w])``: the same tile code, in the same order.
 
     CPU tensors: the closed form.  CUDA tensors: one launch of the kernel,
-    counted as ``radial_gram_diag_batched``, or an error; forward only, so
+    counted as ``radial_gram_diag_batched`` (``radial_gram_diag_batched_highd``
+    in the high-D branch, each slice then equal to the unbatched high-D
+    kernel's), or an error; forward only, so
     an input that requires grad raises there."""
     if profile not in _PROFILE_ID:
         raise ValueError(f"unknown profile {profile}")
@@ -262,13 +490,15 @@ def radial_gram_cols(x, j0: int, b: int, length_scale, sigma, profile: str, diag
     diagonal.  ``diag_add`` is the whole (N,) diagonal; ``host_scalars``
     the (length scale, sigma) as host floats, read once by the caller.
 
-    Launches the kernel on CUDA tensors, counted as ``radial_gram_cols``;
-    CPU tensors take the closed form."""
+    Launches the kernel on CUDA tensors, counted as ``radial_gram_cols``
+    (``radial_gram_cols_highd`` in the high-D branch, whose tiles follow
+    x's global grid, so the block equals those entries of the whole
+    training covariance bit for bit); CPU tensors take the closed form."""
     if profile not in _PROFILE_ID:
         raise ValueError(f"unknown profile {profile}")
     X = as_matrix(x)
     return _gram(X[j0:], X[j0:j0 + b], length_scale, sigma, profile, diag_add[j0:j0 + b],
-                 "radial_gram_cols", host_scalars)
+                 "radial_gram_cols", host_scalars, cols=(X, j0, b))
 
 
 def match_fused_training_cov(kernel, for_measurements: bool = True):

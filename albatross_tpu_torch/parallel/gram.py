@@ -18,6 +18,13 @@ The kernel's parameters and X_full are replicated values used in this
 rank's rows, so they enter through ``vary``: a gradient with respect to
 them sums every rank's rows.
 
+Symmetry: entries (i, j) and (j, i) come from two cross-form launches.
+Below D = 8, in f64 and on the CPU they are exact elementwise sums and
+equal; in the gram kernel's f32 tensor-core branch (D >= 8) the
+contraction is not transpose-exact, so they agree only to its rounding
+(the JAX package's Pallas cross form at D >= 9 is alike).  The distributed factorizations read the lower block
+triangle and factor each diagonal block as the single process does.
+
 ``sharded_gram_2d`` is the 2-D tile layout's gram (``_gram_tile`` of the
 JAX package): rank (i, j) of an (R, C) mesh builds only its (N/R, N/C)
 tile k(X_rows, X_cols), the kernel's cross form on two distinct batches

@@ -89,6 +89,24 @@ of 8 gloo ranks sharing the card, each f32 run against the same run() in
 f64 on the card at the largest size where the example's own model still
 factors in f32, and the inspection example and the five tutorials in f64
 against the CPU; each prints its seconds, errors and kernel launches.
+Phase (i) runs a 32-feature GP on the gram kernel's high-D branch (f32,
+D >= 8: a 3xTF32 tensor-core contraction of per-tile centred coordinates
+with an exact recompute of the tiles inside the profile's support),
+SquaredExponential(2.0) + noise on X = 1000 + t u + 0.05 xi: the four
+launch forms at the path's shapes against ``plain_radial_gram_tiled``
+and f64 (refined share, bitwise symmetry, the column blocks and walker
+slices bit-equal to the materialized and unbatched kernel; times beside
+the bound and torch.cdist + the profile), NLML and fit + predict of 4096
+points at N = 28672 against f64 on the card with a single-pass TF32 and
+an uncentred cdist control, value+grad there with the backward's blocked
+d^2 launches (checked against ``tiled_squared_distances``) and with the
+closed form (time, peak memory), value+grad and the ensemble sampler at
+N = 8192, the lazy NLML and value+grad (both backwards) at N = 57344, and
+a sweep of D = 8, 16, 32, 64 on bench.py's high-D data and the slice's
+law, the branch timed in turns with the elementwise loop on the same
+inputs (the design before it).  The D = 1 main path's grams must hash as
+they did before the high-D branch; the elementwise loop's staged
+instance (f32 at D = 5-7) is held against f64 and timed at D = 7.
 Any failed check raises.  Each kernel's time is printed
 beside its bound (the least time the card could take for the same work);
 the gram kernels also beside the card's write floor, a ``fill_`` of a
@@ -111,6 +129,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import hashlib
 import importlib
 import json
 import math
@@ -215,10 +234,12 @@ EX_SMALL = ("examples.inspection", "tutorials.tutorial_1_one_dimension", "tutori
             "tutorials.tutorial_3_sparse", "tutorials.tutorial_4_state_space",
             "tutorials.tutorial_5_evaluating_uncertainty")
 # NVIDIA's data sheet for the H100 SXM: device memory rate, and the FP32
-# rate outside the tensor cores (the panel kernel and the grams use no
-# tensor cores).
+# rate outside the tensor cores (the panel kernel and the low-D grams use
+# no tensor cores).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 494.7e12  # dense, the tensor cores (NVIDIA's H100 SXM data sheet)
+PROFILE_OPS = 7  # FP32 operations an element for a radial profile (the high-D bound)
 
 # Tolerances, with their reasons:
 # f32 gram vs its plain version: both compute d^2 exactly; they differ only
@@ -362,6 +383,54 @@ EX_TOLS = {  # the comments: first readings, NVIDIA H100 80GB HBM3 at 700 W (PER
                  "compensated + chol=double_word": 5.7e-6},
 }
 EX_CPU_RTOL, EX_CPU_FLOOR = 1e-9, 1e-12
+
+# Phase (i), the gram kernel's high-D branch: a 32-feature GP through the
+# public API, SquaredExponential(HD_LENGTH_SCALE, SIGMA) +
+# measurement_only(IndependentNoise(NOISE)), jitter JITTER, on
+# X = 1000 + t u + 0.05 xi (t sorted on [0, 100], u a unit vector, xi ~
+# N(0, I)), y = sin(0.3 t) + 0.1 noise, numpy seed HD_SEED; the sampler at
+# N_SAMPLER with W_SAMPLER walkers, 16 a half-step, HD_SAMPLER_ITERATIONS.
+HD_D, HD_LENGTH_SCALE, HD_SEED, HD_SAMPLER_ITERATIONS = 32, 2.0, 5, 4
+# Its gates, against f64 on the card (the f64 gram keeps the exact loop at
+# every D), about 10x the first reading (NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md section 6): the largest |f32 - f64| of the training covariance
+# and the cross covariance (1.60e-7, 1.46e-7: the profile's f32 rounding
+# in the exact near tiles) and over the tiles left to the contraction
+# (1.21e-9, 1.00e-9; a single-pass TF32 contraction reads 9.4e-7 and
+# 6.4e-7 there and fails them); the NLML (relative, 6.81e-7), the predicted
+# mean and variance (absolute, 3.79e-5, 5.65e-7); value+grad at N_GRAD
+# (relative 1.59e-6; the gradient over its largest entry, 8.90e-7); the
+# sampler's initial batched log-probs against the per-walker f64 and f32
+# log_likelihood (5.53e-5, 2.27e-5: the f32 factorizations of the jittered
+# walkers) and the lazy NLML at N_LAZY (5.98e-7; the lazy value+grad's
+# value takes its gate, the same forward).  The uncentred cdist
+# control's covariance is 1.0 off and its factorization NaN.
+HD_TOLS = {"covariance": 1.6e-6, "covariance far field": 1.1e-8, "cross": 1.5e-6, "cross far field": 1.1e-8,
+           "nlml": 6.9e-6, "mean": 3.8e-4, "variance": 5.9e-6, "value": 1.6e-5, "gradient": 9e-6, "sampler": 5.6e-4,
+           "sampler per-walker f32": 2.3e-4, "lazy nlml": 6e-6, "lazy value+grad value": 6e-6}
+# The backward's d^2 launches against tiled_squared_distances, relative to
+# the block's largest d^2: the far field's two contractions (3xTF32, and
+# torch.matmul's FP32) each lose a few f32 ulp of |x - c|^2 + |y - c|^2,
+# the near tiles' exact sums differ in their order; a few 1e-7 expected.
+HD_D2_REL_TOL = 1e-6
+# The lazy value+grad's gradient by the d^2 launches against the closed
+# form's, relative to its largest entry: both f32, as the gradient gate.
+HD_LAZY_GRAD_ROUTES_TOL = 9e-6
+# The sweep: feature counts, and the loop's repeats in turns with the branch
+HD_SWEEP_D = (8, 16, 32, 64)
+# sha256 of the D = 1 main path's training covariance and cross covariance
+# from the kernel before its high-D branch (commit c33de6f, the same check
+# on NVIDIA H100 80GB HBM3): the low-D code keeps its bits
+MAIN_PATH_SHA256 = {"covariance": "0ef94291f0b9a3b5c01ae54de60e931bbd5c1b6194ba4e8ffcf041e181a20ac3",
+                    "cross": "f295cbe18613884b164ef35a0f3f1035dcfece5450e9a8776ce701cf996d5f91"}
+# the phase's kernel rows: the high-D branch of each launch form
+HD_SOURCES = {
+    "radial_gram_highd": ("albatross_tpu_torch/csrc/radial_gram.cu", "albatross_tpu/ops/pallas_gram.py:81"),
+    "radial_gram_diag_highd": ("albatross_tpu_torch/csrc/radial_gram.cu", "albatross_tpu/ops/pallas_gram.py:137"),
+    "radial_gram_cols_highd": ("albatross_tpu_torch/csrc/radial_gram.cu", "albatross_tpu/ops/pallas_gram.py:137"),
+    "radial_gram_diag_batched_highd": ("albatross_tpu_torch/csrc/radial_gram.cu",
+                                       "albatross_tpu/ops/pallas_gram.py:137"),
+}
 
 SOURCES = {
     "radial_gram": ("albatross_tpu_torch/csrc/radial_gram.cu", "albatross_tpu/ops/pallas_gram.py:81"),
@@ -2881,6 +2950,517 @@ def check_examples(torch, np, _build, card: str) -> dict:
     return {f"example_{name.replace('.', '_')}": c for name, c in counts.items()}
 
 
+def highd_data(np, n: int, m: int, d: int = HD_D):
+    """Phase (i)'s data: (X (n, d), y (n,), Xs (m, d)), f32, Xs of the same
+    law (the same line u, its own t and xi)."""
+    rng = np.random.default_rng(HD_SEED)
+    t = np.sort(rng.uniform(0.0, 100.0, n))
+    u = rng.standard_normal(d)
+    u /= np.linalg.norm(u)
+    X = (1000.0 + t[:, None] * u[None, :] + 0.05 * rng.standard_normal((n, d))).astype(np.float32)
+    y = (np.sin(0.3 * t) + 0.1 * rng.standard_normal(n)).astype(np.float32)
+    ts = np.sort(rng.uniform(0.0, 100.0, m))
+    Xs = (1000.0 + ts[:, None] * u[None, :] + 0.05 * rng.standard_normal((m, d))).astype(np.float32)
+    return X, y, Xs
+
+
+def highd_model(pt):
+    kernel = pt.SquaredExponential(HD_LENGTH_SCALE, SIGMA) + pt.measurement_only(
+        pt.IndependentNoise(NOISE, assume_unique=True))
+    return pt.gp_from_covariance(kernel, jitter=JITTER)
+
+
+def highd_bound(n: int, m: int, d: int, square: bool, diag: bool) -> tuple[float, str]:
+    """Bound of an (n, m) radial gram at D = d for any implementation: the
+    bytes (inputs read once, the output written once) over the memory rate,
+    or the 2 d n m contraction at the dense TF32 rate plus PROFILE_OPS FP32
+    operations an element, whichever is larger."""
+    nbytes = 4 * (n * m + n * d + (0 if square else m * d) + (n if diag else 0))
+    by_bytes = nbytes / HBM_BYTES_PER_S
+    by_ops = 2 * d * n * m / TF32_FLOP_PER_S + PROFILE_OPS * n * m / FP32_FLOP_PER_S
+    return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
+
+
+def loop_gram(torch, _build, X, Y, ls: float, sigma: float, profile: str, diag=None):
+    """The kernel's elementwise loop at any D through its f32 C entry
+    (``radial_gram_f32``), which the wrapper calls only below D = 8: the
+    design before the high-D branch, timed beside it.  Not counted."""
+    import ctypes
+
+    from albatross_tpu_torch.ops.radial_gram import PROFILES
+
+    lib = _build.load("radial_gram")
+    out = torch.empty((X.shape[0], Y.shape[0]), dtype=torch.float32, device=X.device)
+    fn = lib.radial_gram_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_float,
+                                           ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    code = fn(X.data_ptr(), Y.data_ptr(), None if diag is None else diag.data_ptr(), out.data_ptr(), X.shape[0],
+              Y.shape[0], X.shape[1], ls, sigma, PROFILES.index(profile), torch.cuda.current_stream().cuda_stream)
+    if code != 0:
+        fail(f"the elementwise loop's launch: CUDA error {code}")
+    return out
+
+
+def highd_sweep(torch, np, _build, card: str) -> list:
+    """The high-D branch at D = HD_SWEEP_D on two data kinds, the cross
+    covariance (N, N_TEST) and the training covariance N^2 + diag, SE with
+    sigma 1: its milliseconds and the elementwise loop's (``loop_gram``, the
+    design before the branch) on the same inputs in turns (loop, branch,
+    branch, loop); the share of tiles the TPU kernel's rule refines
+    (``tiled_squared_distances``); the largest |branch - loop|; the bound.
+    Kinds: ``bench``, bench.py's high-D data (U[0, 100]^D, length scale 10:
+    only the covariance's diagonal tiles refine); ``slice``, phase (i)'s law
+    at D (length scale 2: a band of near tiles refines)."""
+    from albatross_tpu_torch.ops.radial_gram import radial_gram, tiled_squared_distances
+
+    dev = torch.device("cuda")
+    rows = []
+    diag = torch.full((N,), NOISE * NOISE + JITTER, dtype=torch.float32, device=dev)
+    for kind in ("bench", "slice"):
+        for d in HD_SWEEP_D:
+            if kind == "bench":
+                rng = np.random.default_rng(d)
+                xn = rng.uniform(0.0, 100.0, (N, d)).astype(np.float32)
+                yn, ls = rng.uniform(0.0, 100.0, (N_TEST, d)).astype(np.float32), 10.0
+            else:
+                xn, _, yn = highd_data(np, N, N_TEST, d)
+                ls = HD_LENGTH_SCALE
+            X, Y = torch.as_tensor(xn, device=dev), torch.as_tensor(yn, device=dev)
+            for form, (A, B, dg) in (("cross", (X, Y, None)), ("covariance", (X, X, diag))):
+                def branch():
+                    return radial_gram(A, B, ls, 1.0, PROFILE, diag_add=dg)
+
+                def loop():
+                    return loop_gram(torch, _build, A, B, ls, 1.0, PROFILE, dg)
+
+                err = (branch() - loop()).abs().max().item()
+                turns = [cuda_ms(torch, f, reps=3, batch=5) for f in (loop, branch, branch, loop)]
+                refined = tiled_squared_distances(A, B, ls, PROFILE)[1]
+                bound_ms, bound_by = highd_bound(A.shape[0], B.shape[0], d, form == "covariance", dg is not None)
+                row = {"kind": kind, "d": d, "form": form, "shape": [A.shape[0], B.shape[0]], "ls": ls,
+                       "ms": turns[1:3], "loop_ms": [turns[0], turns[3]], "max_abs_diff_loop": err,
+                       "refined_share": refined.float().mean().item(), "bound_ms": bound_ms, "bound_by": bound_by}
+                rows.append(row)
+                print(f"[{card}] high-D sweep {kind} {form} {tuple(row['shape'])} D={d}: branch "
+                      f"{turns[1]:.4f} / {turns[2]:.4f} ms, the elementwise loop {turns[0]:.4f} / {turns[3]:.4f} "
+                      f"ms (in turns), bound {bound_ms:.4f} ms by {bound_by} ({bound_ms / min(turns[1:3]):.1%} of "
+                      f"it); refined share by the rule {row['refined_share']:.4f}; max|branch - loop| {err:.3e}")
+                del refined
+            del X, Y
+            torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def gram_replaced(rg, gram):
+    """Every radial gram of the port computed by ``gram`` instead (the
+    fused training covariance and the DSL's Euclidean terms both call
+    ``radial_gram`` through its module)."""
+    kept = rg.radial_gram
+    rg.radial_gram = gram
+    try:
+        yield
+    finally:
+        rg.radial_gram = kept
+
+
+def check_highd(torch, np, pt, _build, config, card: str) -> dict:
+    """Phase (i): the 32-feature GP on the gram kernel's high-D branch.
+    The four launch forms at the path's shapes against the tiled plain
+    version and f64 (the refined share, bitwise symmetry, exact diagonal,
+    column blocks and walker slices bit-equal to the materialized and
+    unbatched kernel), timed beside the bound and the library yardstick;
+    the main path at N (NLML, fit + predict of N_TEST points) against f64
+    on the card, with a single-pass TF32 contraction and an uncentred
+    cdist control; value+grad at N with the backward's d^2 launch and with
+    the closed form (time, peak memory); value+grad at N_GRAD and the
+    sampler there against f64; the lazy NLML at N_LAZY against f64.
+    Returns the kernel rows, the launches of each path and the phase's."""
+    import importlib
+
+    from albatross_tpu_torch.ops.radial_gram import (
+        apply_profile,
+        plain_radial_gram,
+        plain_radial_gram_tiled,
+        radial_gram,
+        radial_gram_cols,
+        radial_gram_diag_batched,
+        tiled_squared_distances,
+    )
+    from albatross_tpu_torch.samplers import ensemble_sampler_from_model, initial_params_from_jitter
+    from albatross_tpu_torch.samplers.ensemble import model_log_prob_fn
+
+    rg = importlib.import_module("albatross_tpu_torch.ops.radial_gram")
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    ls, profile = HD_LENGTH_SCALE, PROFILE
+    X_np, y_np, Xs_np = highd_data(np, N, N_TEST)
+    X, Xs = torch.as_tensor(X_np, device=dev), torch.as_tensor(Xs_np, device=dev)
+    diag = torch.full((N,), NOISE * NOISE + JITTER, dtype=torch.float32, device=dev)
+    phase = {name: 0 for name in _build.LAUNCHES}
+    results, errors = {}, {}
+
+    def tally(counts):
+        for k, v in counts.items():
+            phase[k] += v
+
+    def tf32_gram(A, B, length_scale, sigma, profile="squared_exponential", diag_add=None):
+        """The control: the tiled version with a single-pass TF32 contraction."""
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return plain_radial_gram_tiled(A, B, length_scale, sigma, profile, diag_add)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    def uncentred_gram(A, B, length_scale, sigma, profile="squared_exponential", diag_add=None):
+        """The control: |x|^2 + |y|^2 - 2 x.y over the raw coordinates."""
+        out = apply_profile(profile, torch.cdist(A, B, compute_mode="use_mm_for_euclid_dist") ** 2, length_scale,
+                            sigma)
+        if diag_add is not None:
+            out.diagonal().add_(diag_add)
+        return out
+
+    controls = {"single-pass TF32": tf32_gram, "uncentred cdist": uncentred_gram}
+    control_errors = {name: {} for name in controls}
+
+    # -- the two materialized forms at the main path's shapes ---------------
+    for name, (A, B, dg, key) in (("radial_gram_diag_highd", (X, X, diag, "covariance")),
+                                  ("radial_gram_highd", (X, Xs, None, "cross"))):
+        _build.reset_launch_counts()
+        got = radial_gram(A, B, ls, SIGMA, profile, diag_add=dg)
+        counts = dict(_build.LAUNCHES)
+        if counts[name] != 1 or sum(counts.values()) != 1:
+            fail(f"{name}: launches {counts}")
+        tiled = plain_radial_gram_tiled(A, B, ls, SIGMA, profile, dg)
+        err = (got - tiled).abs().max().item()
+        del tiled
+        _, refined = tiled_squared_distances(A, B, ls, profile)
+        near = refined.to(dev).repeat_interleave(128, 0).repeat_interleave(128, 1)[:A.shape[0], :B.shape[0]]
+        exact = plain_radial_gram(A.double(), B.double(), ls, SIGMA, profile, None if dg is None else dg.double())
+
+        def gram_errors(out):
+            """(largest |out - f64|, the same over the tiles the rule leaves
+            to the contraction)."""
+            diff = (out.double() - exact).abs_()
+            return diff.max().item(), diff.masked_fill_(near, 0.0).max().item()
+
+        errors[key], errors[f"{key} far field"] = gram_errors(got)
+        line = ""
+        if dg is not None:
+            s32 = torch.tensor(SIGMA, dtype=torch.float32, device=dev)
+            if not torch.equal(got, got.T) or not torch.equal(got.diagonal(), s32 * s32 + dg):
+                fail(f"{name}: not bitwise symmetric with sigma^2 + diag on its diagonal")
+            line = "; bitwise symmetric, diagonal exactly sigma^2 + diag"
+        del got
+        for control, gram in controls.items():
+            out = gram(A, B, ls, SIGMA, profile, dg)
+            control_errors[control][key], control_errors[control][f"{key} far field"] = gram_errors(out)
+            del out
+        del exact, near
+        print(f"{name} ({A.shape[0]}, {B.shape[0]}) D={HD_D} f32: max|kernel - tiled plain| = {err:.3e} (tol "
+              f"{GRAM_F32_TOL:g} sigma^2), max|kernel - f64| = {errors[key]:.3e}, over the tiles left to the "
+              f"contraction {errors[f'{key} far field']:.3e}; refined tiles "
+              f"{refined.float().mean().item():.4f} of {refined.numel()}{line}")
+        if not err <= GRAM_F32_TOL * SIGMA**2:
+            fail(f"{name} disagrees with its plain version: {err}")
+
+        def kernel():
+            return radial_gram(A, B, ls, SIGMA, profile, diag_add=dg)
+
+        def library(mode="use_mm_for_euclid_dist"):
+            return apply_profile(profile, torch.cdist(A, B, compute_mode=mode) ** 2, ls, SIGMA)
+
+        r = {"max_abs_err": err, "refined_share": refined.float().mean().item(),
+             "ms": cuda_ms(torch, kernel),
+             "plain_ms": cuda_ms(torch, lambda: plain_radial_gram_tiled(A, B, ls, SIGMA, profile, dg), reps=3,
+                                 batch=1),
+             "library_cdist_mm_ms": cuda_ms(torch, library, reps=3, batch=3),
+             "library_cdist_ms": cuda_ms(torch, lambda: library("donot_use_mm_for_euclid_dist"), reps=1, batch=1)}
+        ref = plain_radial_gram(A.double(), B.double(), ls, SIGMA, profile)
+        r["library_cdist_mm_err"] = (library().double() - ref).abs().max().item()
+        r["library_cdist_err"] = (library("donot_use_mm_for_euclid_dist").double() - ref).abs().max().item()
+        del ref
+        r["bound_ms"], r["bound_by"] = highd_bound(A.shape[0], B.shape[0], HD_D, dg is not None, dg is not None)
+        results[name] = r
+        print(f"[{card}] {name} ({A.shape[0]}, {B.shape[0]}) D={HD_D}: kernel {r['ms']:.4f} ms, tiled plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bound_ms'] / r['ms']:.1%} "
+              f"of it); library yardstick torch.cdist + apply_profile: with mm {r['library_cdist_mm_ms']:.4f} ms "
+              f"(max err vs f64 {r['library_cdist_mm_err']:.3e}), without {r['library_cdist_ms']:.4f} ms (max err "
+              f"{r['library_cdist_err']:.3e})")
+        torch.cuda.empty_cache()
+
+    # -- the main path at N, against f64 on the card -------------------------
+    model = highd_model(pt)
+    data = pt.RegressionDataset.create(X_np, y_np, dtype=torch.float32)
+    _build.reset_launch_counts()
+    ll = model.log_likelihood(data)
+    torch.cuda.synchronize()
+    nlml_counts = dict(_build.LAUNCHES)
+    pred = model.fit(data).predict(Xs).marginal()
+    torch.cuda.synchronize()
+    path_counts = dict(_build.LAUNCHES)
+    tally(path_counts)
+    print(f"phase (i) launches in log_likelihood: {nlml_counts}; in NLML + fit + predict: {path_counts}")
+    if (nlml_counts["radial_gram_diag_highd"] != 1 or nlml_counts["panel_cholinv"] != PANELS
+            or nlml_counts["radial_gram_diag"] != 0):
+        fail(f"phase (i) log_likelihood launch counts {nlml_counts}")
+    if (path_counts["radial_gram_highd"] < 1 or path_counts["radial_gram_diag_highd"] != 2
+            or path_counts["radial_gram"] != 0 or path_counts["radial_gram_diag"] != 0):
+        fail(f"phase (i) main-path launch counts {path_counts}")
+    data64 = pt.RegressionDataset.create(X_np.astype(np.float64), y_np.astype(np.float64), dtype=torch.float64)
+    Xs64 = Xs.double()
+    ll64 = model.log_likelihood(data64).item()
+    pred64 = model.fit(data64).predict(Xs64).marginal()
+
+    def path_errors(ll, pred):
+        if pred.mean.shape != (N_TEST,) or pred.variance.shape != (N_TEST,):
+            fail(f"phase (i) predict shapes {tuple(pred.mean.shape)}, {tuple(pred.variance.shape)}")
+        return {"nlml": abs(ll.item() - ll64) / abs(ll64),
+                "mean": (pred.mean.double() - pred64.mean).abs().max().item(),
+                "variance": (pred.variance.double() - pred64.variance).abs().max().item()}
+
+    errors.update(path_errors(ll, pred))
+    print(f"phase (i) log_likelihood N={N} D={HD_D} f32 = {ll.item()!r}, f64 on the card = {ll64!r}")
+    del pred
+    for control, gram in controls.items():
+        with gram_replaced(rg, gram):
+            control_errors[control].update(path_errors(model.log_likelihood(data), model.fit(data).predict(Xs).marginal()))
+    keys = ("covariance", "covariance far field", "cross", "cross far field", "nlml", "mean", "variance")
+    check_gates(f"phase (i) main path N={N} D={HD_D} against f64", {k: errors[k] for k in keys}, HD_TOLS)
+    for control, errs in control_errors.items():
+        failed = [k for k in keys if not errs[k] <= HD_TOLS[k]]
+        print(f"phase (i) {control} control: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f"; rejected by the gates of {failed}")
+        if not failed:
+            fail(f"phase (i) gates accept the {control} control: {errs}")
+    del data64, pred64
+    nlml_times = wall_times(torch, lambda: model.log_likelihood(data), REPS)
+    fp_times = wall_times(torch, lambda: model.fit(data).predict(Xs).marginal(), 3)
+    print(f"[{card}] phase (i) NLML N={N} D={HD_D} f32: {statistics.median(nlml_times):.4f} s/eval (median of "
+          f"{REPS}; all {nlml_times}); fit + predict marginal ({N} -> {N_TEST}): {statistics.median(fp_times):.4f} s "
+          f"(median of 3; all {fp_times})")
+
+    # -- value+grad at N: the backward's d^2 launches, and the closed form ------
+    def d2_blocks(n):
+        return len(range(0, n, rg.d2_block_width(n, n)))
+
+    for way in ("d^2 from the kernel", "closed form"):
+        kept = rg._kernel_d2_backward
+        if way == "closed form":
+            rg._kernel_d2_backward = lambda X, needs: False
+        try:
+            value_grad(torch, model, data)  # warm-up
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+            times = wall_times(torch, lambda: value_grad(torch, model, data), 2)
+            counts = dict(_build.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        finally:
+            rg._kernel_d2_backward = kept
+        print(f"[{card}] phase (i) value+grad N={N} D={HD_D} f32, backward by {way}: "
+              f"{statistics.median(times):.4f} s/eval (median of 2; all {times}); peak device memory {peak:.2f} GiB; "
+              f"launches {counts}")
+        if counts["radial_gram_d2_highd"] != (2 * d2_blocks(N) if way != "closed form" else 0):
+            fail(f"phase (i) value+grad by {way}: launches {counts}")
+        results.setdefault("value_grad", {})[way] = {"s": statistics.median(times), "peak_gib": peak,
+                                                     "d2_launches": counts["radial_gram_d2_highd"]}
+
+    # the backward's d^2 blocks (profile id 4) at the value+grad shape against the tiled version
+    width = rg.d2_block_width(N, N)
+    d2_err = 0.0
+    for j0 in (0, width, N - N % width if N % width else N - width):
+        b = min(width, N - j0)
+        got = rg._launch(X[j0:], X[j0:j0 + b], ls, 1.0, None, profile, "radial_gram_d2", (X, j0, b),
+                         squared_distance=True)
+        ref = tiled_squared_distances(X[j0:], X[j0:j0 + b], ls, profile)[0]
+        d2_err = max(d2_err, ((got - ref).abs().max() / ref.abs().max()).item())
+        del got, ref
+    print(f"radial_gram_d2_highd N={N} D={HD_D}: the backward's {d2_blocks(N)} column blocks of width {width}; "
+          f"blocks at j0 = 0, {width}, the last against tiled_squared_distances: max|kernel - tiled| over the "
+          f"block's largest d^2 {d2_err:.3e} (tol {HD_D2_REL_TOL:g})")
+    if not d2_err <= HD_D2_REL_TOL:
+        fail(f"phase (i) the d^2 launches disagree with tiled_squared_distances: {d2_err}")
+    results["value_grad"]["d2_max_rel_err"] = d2_err
+
+    # -- value+grad and the sampler at N_GRAD --------------------------------
+    Xg_np, yg_np, _ = highd_data(np, N_GRAD, 1)
+    data_g = pt.RegressionDataset.create(Xg_np, yg_np, dtype=torch.float32)
+    _build.reset_launch_counts()
+    value, grad = value_grad(torch, model, data_g)
+    grad_counts = dict(_build.LAUNCHES)
+    tally(grad_counts)
+    check_counts(f"phase (i) value+grad N={N_GRAD}", grad_counts,
+                 {"radial_gram_diag_highd": 1, "radial_gram_d2_highd": d2_blocks(N_GRAD),
+                  "panel_cholinv": PANELS_GRAD, "radial_gram_diag": 0})
+    x64 = torch.as_tensor(Xg_np, dtype=torch.float64, device=dev)
+    y64 = torch.as_tensor(yg_np, dtype=torch.float64, device=dev)
+    ref = reference_value_grad(torch, model, x64, y64, profile)
+    errors["value"], errors["gradient"] = grad_errors(value, grad, ref)
+    del x64, y64
+
+    data_g64 = pt.RegressionDataset.create(Xg_np.astype(np.float64), yg_np.astype(np.float64), dtype=torch.float64)
+    walkers = initial_params_from_jitter(HD_SEED, model.get_tunable_parameters().values, W_SAMPLER)
+    ref64 = torch.stack([model.set_tunable_params(w).log_likelihood(data_g64).cpu() for w in walkers])
+    per32 = torch.stack([model.set_tunable_params(w).log_likelihood(data_g).cpu().double() for w in walkers])
+    _build.reset_launch_counts()
+    got = model_log_prob_fn(model, data_g)(walkers)
+    errors["sampler"], errors["sampler per-walker f32"] = max_rel(got, ref64), max_rel(got, per32)
+    chain = ensemble_sampler_from_model(model, data_g, W_SAMPLER, HD_SAMPLER_ITERATIONS, key=HD_SEED)
+    torch.cuda.synchronize()
+    sampler_counts = dict(_build.LAUNCHES)
+    tally(sampler_counts)
+    rate = chain.acceptance_rate()
+    print(f"phase (i) sampler N={N_GRAD}, {W_SAMPLER} walkers, {HD_SAMPLER_ITERATIONS} iterations: acceptance "
+          f"{rate:.3f}; launches {sampler_counts}")
+    if not (np.isfinite(chain.log_prob[-1]).all() and 0.0 < rate < 1.0):
+        fail(f"phase (i) sampler chain: acceptance {rate}, final log-probs {chain.log_prob[-1]}")
+    if (sampler_counts["radial_gram_diag_batched_highd"] < 2 + 2 * HD_SAMPLER_ITERATIONS
+            or sampler_counts["radial_gram_diag_batched"] != 0):
+        fail(f"phase (i) sampler launch counts {sampler_counts}")
+    del data_g64
+
+    # the batched form at the sampler's shape: slices against the unbatched kernel and the tiled version
+    g = torch.Generator().manual_seed(HD_SEED)
+    xg = data_g.features
+    lsw = (ls * (0.8 + 0.4 * torch.rand(W_KERNEL, generator=g))).to(dev)
+    sgw = (SIGMA * (0.8 + 0.4 * torch.rand(W_KERNEL, generator=g))).to(dev)
+    dgw = torch.full((W_KERNEL, N_GRAD), NOISE * NOISE + JITTER, dtype=torch.float32, device=dev)
+    _build.reset_launch_counts()
+    Kb = radial_gram_diag_batched(xg, lsw, sgw, dgw, profile)
+    if _build.LAUNCHES["radial_gram_diag_batched_highd"] != 1:
+        fail(f"phase (i) batched gram launches {dict(_build.LAUNCHES)}")
+    equal, err = True, 0.0
+    for w in range(W_KERNEL):
+        one = radial_gram(xg, xg, lsw[w].item(), sgw[w].item(), profile, diag_add=dgw[w])
+        equal &= bool(torch.equal(Kb[w], one))
+        if w < 2:
+            tiled = plain_radial_gram_tiled(xg, xg, lsw[w].item(), sgw[w].item(), profile, dgw[w])
+            err = max(err, (Kb[w] - tiled).abs().max().item())
+    _, refined = tiled_squared_distances(xg, xg, ls, profile)
+    del Kb, one, tiled
+    print(f"radial_gram_diag_batched_highd ({W_KERNEL}, {N_GRAD}, {N_GRAD}) D={HD_D} f32: slices bit-equal to the "
+          f"unbatched kernel: {equal}; max|kernel - tiled plain| = {err:.3e} over 2 walkers")
+    if not (equal and err <= GRAM_F32_TOL * sgw.max().item() ** 2):
+        fail(f"phase (i) batched gram: slices equal {equal}, plain {err}")
+    one_bound, _ = highd_bound(N_GRAD, N_GRAD, HD_D, True, True)
+    r = {"max_abs_err": err, "refined_share": refined.float().mean().item(),
+         "ms": cuda_ms(torch, lambda: radial_gram_diag_batched(xg, lsw, sgw, dgw, profile)),
+         "plain_ms": W_KERNEL * cuda_ms(torch, lambda: plain_radial_gram_tiled(xg, xg, ls, SIGMA, profile, dgw[0]),
+                                        reps=3, batch=1),
+         "bound_ms": W_KERNEL * one_bound, "bound_by": "bytes",
+         "library_cdist_mm_ms": W_KERNEL * cuda_ms(torch, lambda: apply_profile(
+             profile, torch.cdist(xg, xg, compute_mode="use_mm_for_euclid_dist") ** 2, ls, SIGMA), reps=3, batch=3)}
+    results["radial_gram_diag_batched_highd"] = r
+    print(f"[{card}] radial_gram_diag_batched_highd ({W_KERNEL}, {N_GRAD}, {N_GRAD}) D={HD_D}: kernel {r['ms']:.4f} "
+          f"ms, tiled plain {r['plain_ms']:.4f} ms ({W_KERNEL} walkers in turn), bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_ms'] / r['ms']:.1%} of it); refined tiles {r['refined_share']:.4f}; cdist with mm + profile, "
+          f"{W_KERNEL} in turn, {r['library_cdist_mm_ms']:.4f} ms")
+
+    # -- the lazy loop at N_LAZY ---------------------------------------------
+    XL_np, yL_np, _ = highd_data(np, N_LAZY, 1)
+    data_l = pt.RegressionDataset.create(XL_np, yL_np, dtype=torch.float32)
+    _build.reset_launch_counts()
+    t = time.perf_counter()
+    ll_lazy = model.log_likelihood(data_l).item()
+    torch.cuda.synchronize()
+    lazy_s = time.perf_counter() - t
+    lazy_counts = dict(_build.LAUNCHES)
+    tally(lazy_counts)
+    check_counts(f"phase (i) lazy NLML N={N_LAZY}", lazy_counts,
+                 {"radial_gram_cols_highd": PANELS_LAZY, "panel_cholinv": PANELS_LAZY, "radial_gram_cols": 0,
+                  "radial_gram_diag_highd": 0})
+    data_l64 = pt.RegressionDataset.create(XL_np.astype(np.float64), yL_np.astype(np.float64), dtype=torch.float64)
+    ll_lazy64 = model.log_likelihood(data_l64).item()
+    errors["lazy nlml"] = abs(ll_lazy - ll_lazy64) / abs(ll_lazy64)
+    del data_l64
+    print(f"[{card}] phase (i) lazy NLML N={N_LAZY} D={HD_D} f32: {ll_lazy!r} (f64 {ll_lazy64!r}) in {lazy_s:.3f} s "
+          f"(the first evaluation)")
+    lazy_vg = {}
+    for way in ("d^2 from the kernel", "closed form"):
+        kept = rg._kernel_d2_backward
+        if way == "closed form":
+            rg._kernel_d2_backward = lambda X, needs: False
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+            t = time.perf_counter()
+            value, grad = value_grad(torch, model, data_l)
+            seconds = time.perf_counter() - t
+            counts = dict(_build.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        finally:
+            rg._kernel_d2_backward = kept
+        lazy_vg[way] = (value.item(), grad)
+        print(f"[{card}] phase (i) lazy value+grad N={N_LAZY} D={HD_D} f32, backward by {way}: {seconds:.3f} s (one "
+              f"evaluation); peak device memory {peak:.2f} GiB; launches {counts}")
+        check_counts(f"phase (i) lazy value+grad N={N_LAZY} by {way}", counts,
+                     {"radial_gram_cols_highd": PANELS_LAZY, "panel_cholinv": PANELS_LAZY,
+                      "radial_gram_d2_highd": PANELS_LAZY if way != "closed form" else 0,
+                      "radial_gram_diag_highd": 0})
+        results.setdefault("lazy_value_grad", {})[way] = {"s": seconds, "peak_gib": peak}
+    (v_kernel, g_kernel), (v_closed, g_closed) = lazy_vg.values()
+    errors["lazy value+grad value"] = abs(-v_kernel - ll_lazy64) / abs(ll_lazy64)
+    routes = ((g_kernel - g_closed).abs().max() / g_closed.abs().max()).item()
+    print(f"phase (i) lazy value+grad N={N_LAZY}: value {v_kernel!r} (closed form {v_closed!r}; f64 NLML "
+          f"{ll_lazy64!r}), gradient {g_kernel.tolist()}, against the closed form's {routes:.3e} of its largest "
+          f"entry (tol {HD_LAZY_GRAD_ROUTES_TOL:g})")
+    if not (torch.isfinite(g_kernel).all() and routes <= HD_LAZY_GRAD_ROUTES_TOL):
+        fail(f"phase (i) lazy value+grad: the two backwards' gradients differ by {routes}")
+    del lazy_vg, g_kernel, g_closed, value, grad
+    xl = data_l.features
+    diag_l = torch.full((N_LAZY,), NOISE * NOISE + JITTER, dtype=torch.float32, device=dev)
+    K_l = radial_gram(xl, xl, ls, SIGMA, profile, diag_add=diag_l)
+    equal = True
+    for j0 in (0, COL_B, N_LAZY - COL_B):
+        equal &= bool(torch.equal(radial_gram_cols(xl, j0, COL_B, ls, SIGMA, profile, diag_l),
+                                  K_l[j0:, j0:j0 + COL_B]))
+    del K_l
+    cols_err = 0.0
+    for j0 in (0, N_LAZY - COL_B):  # the cross form of the tiled version keeps the grid where j0 % 128 == 0
+        col = radial_gram_cols(xl, j0, COL_B, ls, SIGMA, profile, diag_l)
+        tiled = plain_radial_gram_tiled(xl[j0:], xl[j0:j0 + COL_B], ls, SIGMA, profile, diag_l[j0:j0 + COL_B])
+        cols_err = max(cols_err, (col - tiled).abs().max().item())
+    del col, tiled
+    print(f"radial_gram_cols_highd N={N_LAZY} D={HD_D}: blocks at j0 = 0, {COL_B}, {N_LAZY - COL_B} bit-equal to the "
+          f"materialized training covariance: {equal}; max|kernel - tiled plain| = {cols_err:.3e}")
+    if not (equal and cols_err <= GRAM_F32_TOL * SIGMA**2):
+        fail(f"phase (i) column blocks: equal {equal}, plain {cols_err}")
+    starts = range(0, N_LAZY, COL_B)
+
+    def group():
+        for j0 in starts:
+            radial_gram_cols(xl, j0, COL_B, ls, SIGMA, profile, diag_l)
+
+    def plain_group():
+        for j0 in starts:
+            plain_radial_gram_tiled(xl[j0:], xl[j0:j0 + COL_B], ls, SIGMA, profile, diag_l[j0:j0 + COL_B])
+
+    # the group's bound: x[j0:] and the diagonal read, each (N_LAZY - j0, b) block written; the contraction
+    # and the profile of every block
+    by_bytes = by_ops = 0.0
+    for j0 in starts:
+        rows, cols = N_LAZY - j0, min(COL_B, N_LAZY - j0)
+        by_bytes += 4 * (rows * cols + rows * HD_D + cols) / HBM_BYTES_PER_S
+        by_ops += 2 * HD_D * rows * cols / TF32_FLOP_PER_S + 7 * rows * cols / FP32_FLOP_PER_S
+    r = {"max_abs_err": cols_err, "ms": cuda_ms(torch, group, batch=2),
+         "plain_ms": cuda_ms(torch, plain_group, reps=1, batch=1), "bound_ms": 1e3 * max(by_bytes, by_ops),
+         "bound_by": "bytes" if by_bytes >= by_ops else "operations", "lazy_s": lazy_s}
+    results["radial_gram_cols_highd"] = r
+    print(f"[{card}] radial_gram_cols_highd, the {len(starts)} column launches of one lazy NLML N={N_LAZY} D={HD_D} as "
+          f"one group: kernel {r['ms']:.4f} ms, tiled plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_ms'] / r['ms']:.1%} of it)")
+
+    check_gates(f"phase (i) against f64 on the card", errors, HD_TOLS)
+    results["radial_gram_highd"]["sweep"] = highd_sweep(torch, np, _build, card)
+    launches = {"radial_gram_highd": path_counts["radial_gram_highd"],
+                "radial_gram_diag_highd": path_counts["radial_gram_diag_highd"],
+                "radial_gram_cols_highd": lazy_counts["radial_gram_cols_highd"],
+                "radial_gram_diag_batched_highd": sampler_counts["radial_gram_diag_batched_highd"]}
+    print(f"[{card}] phase (i), the 32-feature GP: {time.perf_counter() - t_phase:.1f} s")
+    return {"results": results, "launches": launches, "phase": phase, "value_grad_launches": grad_counts}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -2920,6 +3500,9 @@ def main() -> int:
         print(f"build {name}: {seconds:.1f} s; {ptxas_summary(log)}")
         if name == "panel_cholinv":
             print(f"  {ptxas_kernel(log, 'panel_cholinv_tasks')}")
+        if name == "radial_gram":  # the high-D branch (one profile's instance each)
+            for kernel in ("highd_cross_kernel", "highd_sym_kernel", "highd_exact_cross_kernel", "highd_exact_sym_kernel"):
+                print(f"  {ptxas_kernel(log, kernel)}")
     print(f"kernel build total: {time.perf_counter() - t0:.1f} s")
 
     rng = np.random.default_rng(SEED)
@@ -2948,9 +3531,14 @@ def main() -> int:
         fail("gram_diag diagonal is not exactly sigma^2 + diag")
     print("gram_diag: bitwise symmetric, diagonal exactly sigma^2 + diag")
     results["radial_gram_diag"] = {"max_abs_err": err}
+    hashes = {"covariance": hashlib.sha256(K.cpu().numpy().tobytes()).hexdigest()}
     del K, Kp
 
     C = radial_gram(x, xs, LENGTH_SCALE, SIGMA, profile)
+    hashes["cross"] = hashlib.sha256(C.cpu().numpy().tobytes()).hexdigest()
+    print(f"D = 1 main path grams keep their bits: {hashes == MAIN_PATH_SHA256} (sha256 {hashes})")
+    if hashes != MAIN_PATH_SHA256:
+        fail(f"the D = 1 main path's grams changed: sha256 {hashes}, before {MAIN_PATH_SHA256}")
     err = (C - plain_radial_gram(x, xs, LENGTH_SCALE, SIGMA, profile)).abs().max().item()
     print(f"cross gram ({N}, {N_TEST}) D=1 f32: max|kernel - plain| = {err:.3e}")
     if not err <= GRAM_F32_TOL * SIGMA**2:
@@ -2958,14 +3546,39 @@ def main() -> int:
     results["radial_gram"] = {"max_abs_err": err}
     cols_err = check_column_blocks(torch, x, diag)
 
+    # the elementwise loop's staged instance (D > 4): every f32 gram at D = 5-7, every f64 one at D >= 5
+    g7 = torch.Generator(device="cpu").manual_seed(SEED + 7)
+    X7 = (10.0 * torch.rand((4096, 7), generator=g7)).to(dev)
+    Y7 = (10.0 * torch.rand((2048, 7), generator=g7)).to(dev)
+    _build.reset_launch_counts()
+    K7 = radial_gram(X7, Y7, 3.0, 1.5, "matern_52")
+    counts7 = dict(_build.LAUNCHES)
+    ref7 = plain_radial_gram(X7.double(), Y7.double(), 3.0, 1.5, "matern_52")
+    err = (K7.double() - ref7).abs().max().item()
+    err_plain = (K7 - plain_radial_gram(X7, Y7, 3.0, 1.5, "matern_52")).abs().max().item()
+    print(f"radial_gram (4096, 2048) D=7 matern_52 f32 (the loop's staged instance): max|kernel - f64| = {err:.3e}, "
+          f"max|kernel - plain f32| = {err_plain:.3e} (tol {GRAM_F32_TOL:g} sigma^2); launches {counts7}")
+    if counts7["radial_gram"] != 1 or sum(counts7.values()) != 1:
+        fail(f"the D = 7 f32 gram did not launch the elementwise loop alone: {counts7}")
+    if not (err <= GRAM_F32_TOL * 1.5**2 and err_plain <= GRAM_F32_TOL * 1.5**2):
+        fail(f"the D = 7 f32 gram disagrees with the f64 closed form ({err}) or its plain version ({err_plain})")
+    results["radial_gram"]["staged_d7_max_abs_err"] = max(err, err_plain)
+    del K7, ref7
+
+    # the high-D branch where every tile refines (U[0, 10]^16, Matern's cut d <= 27 against distances ~16)
     g = torch.Generator(device="cpu").manual_seed(SEED)
     X16 = (10.0 * torch.rand((4096, 16), generator=g)).to(dev)
     Y16 = (10.0 * torch.rand((2048, 16), generator=g)).to(dev)
+    _build.reset_launch_counts()
     K16 = radial_gram(X16, Y16, 3.0, 1.5, "matern_52")
+    counts16 = dict(_build.LAUNCHES)
     ref16 = plain_radial_gram(X16.double(), Y16.double(), 3.0, 1.5, "matern_52")
     err = (K16.double() - ref16).abs().max().item()
     err_plain = (plain_radial_gram(X16, Y16, 3.0, 1.5, "matern_52").double() - ref16).abs().max().item()
-    print(f"gram D=16 matern_52 f32: max|kernel - f64| = {err:.3e}, max|plain f32 - f64| = {err_plain:.3e}")
+    print(f"radial_gram_highd (4096, 2048) D=16 matern_52 f32: max|kernel - f64| = {err:.3e}, max|plain f32 - f64| = "
+          f"{err_plain:.3e}; launches {counts16}")
+    if counts16["radial_gram_highd"] != 1 or sum(counts16.values()) != 1:
+        fail(f"the D = 16 f32 gram did not launch the high-D branch alone: {counts16}")
     if not err <= GRAM_F32_TOL * 1.5**2:
         fail(f"D=16 gram disagrees with the f64 closed form: {err}")
 
@@ -3164,16 +3777,27 @@ def main() -> int:
         print(f"[{card}] {name} ({N}, {cols}) f32: {written / r['ms'] / 1e9:.3f} TB/s written, "
               f"{r['bound_ms'] / r['ms']:.1%} of the {HBM_BYTES_PER_S / 1e12:.2f} TB/s bound; write floor "
               f"(fill_) {r['write_floor_ms']:.4f} ms = {written / r['write_floor_ms'] / 1e9:.3f} TB/s")
+    X7 = (10.0 * torch.rand((N, 7), generator=g7)).to(dev)
+    Y7 = (10.0 * torch.rand((N_TEST, 7), generator=g7)).to(dev)
+    r = results["radial_gram"]
+    r["staged_d7_ms"] = cuda_ms(torch, lambda: radial_gram(X7, Y7, 3.0, 1.5, "matern_52"))
+    r["staged_d7_bound_ms"], r["staged_d7_bound_by"] = gram_bound(N, N_TEST, 7, 4, square=False, diag=False)
+    print(f"[{card}] radial_gram ({N}, {N_TEST}) D=7 matern_52 f32 (the loop's staged instance): kernel "
+          f"{r['staged_d7_ms']:.4f} ms, bound {r['staged_d7_bound_ms']:.4f} ms by {r['staged_d7_bound_by']} "
+          f"({r['staged_d7_bound_ms'] / r['staged_d7_ms']:.1%} of it)")
     X16 = (10.0 * torch.rand((N, 16), generator=g)).to(dev)
     Y16 = (10.0 * torch.rand((N_TEST, 16), generator=g)).to(dev)
-    ms16 = cuda_ms(torch, lambda: radial_gram(X16, Y16, 3.0, 1.5, "matern_52"))
-    bound16, by16 = gram_bound(N, N_TEST, 16, 4, square=False, diag=False)
-    print(f"[{card}] radial_gram ({N}, {N_TEST}) D=16 matern_52 f32: kernel {ms16:.4f} ms, "
-          f"bound {bound16:.4f} ms by {by16} ({bound16 / ms16:.1%} of it)")
+    turns16 = [cuda_ms(torch, f) for f in (lambda: loop_gram(torch, _build, X16, Y16, 3.0, 1.5, "matern_52"),
+                                           lambda: radial_gram(X16, Y16, 3.0, 1.5, "matern_52"))]
+    bound16, by16 = highd_bound(N, N_TEST, 16, square=False, diag=False)
+    highd_d16 = {"d16_matern_ms": turns16[1], "d16_matern_loop_ms": turns16[0], "d16_matern_bound_ms": bound16}
+    print(f"[{card}] radial_gram_highd ({N}, {N_TEST}) D=16 matern_52 f32 (every tile refines): kernel "
+          f"{turns16[1]:.4f} ms, the elementwise loop on the same inputs {turns16[0]:.4f} ms, bound {bound16:.4f} "
+          f"ms by {by16} ({bound16 / turns16[1]:.1%} of it)")
     print(f"[{card}] panel_cholinv b=128 (one tile step): kernel "
           f"{cuda_ms(torch, lambda: panel_cholinv(A128)):.4f} ms, plain "
           f"{cuda_ms(torch, lambda: plain_panel_cholinv(A128)):.4f} ms")
-    del X16, Y16
+    del X7, Y7, X16, Y16
     # the panel's backward (five b x b FP32 products through torch.matmul)
     U, Wu = panel_cholinv(A)
     gU, gW = torch.randn_like(U), torch.randn_like(Wu)
@@ -3216,6 +3840,9 @@ def main() -> int:
     phase_counts.update(check_distributed_four(torch, np, pt, _build, card))
     # -- phase (h): the examples and tutorials at full size ----------------
     phase_counts.update(check_examples(torch, np, _build, card))
+    # -- phase (i): the 32-feature GP on the gram kernel's high-D branch -----
+    highd = check_highd(torch, np, pt, _build, config, card)
+    phase_counts["highd"] = highd["phase"]
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
@@ -3236,6 +3863,7 @@ def main() -> int:
             entry["library_two_call_ms"] = r["library_two_call_ms"]
         if "write_floor_ms" in r:
             entry["write_floor_ms"] = r["write_floor_ms"]
+        entry.update({k: v for k, v in r.items() if k.startswith("staged_d7_")})
         entry.update({f"{phase}_launches": counts[name] for phase, counts in phase_counts.items()})
         if name == "radial_gram":  # the sparse GP's K_fu at (N_FITC, M_FITC)
             entry.update({f"fitc_cross_{k}": v for k, v in fitc["cross"].items()})
@@ -3246,6 +3874,27 @@ def main() -> int:
                 "lazy_group_bound_ms": lazy["group_bound_ms"], "lazy_group_bound_by": lazy["group_bound_by"],
                 "lazy_max_abs_err": cols_err,
             })
+        kernels.append(entry)
+    for name, (source, replaces) in HD_SOURCES.items():  # phase (i)'s rows: their own path's launches
+        r = highd["results"][name]
+        entry = {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": highd["launches"][name], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            # no single PyTorch call computes a radial gram: torch.cdist + apply_profile is two
+            "library_ms": None,
+            "value_grad_launches": highd["value_grad_launches"][name],
+        }
+        entry.update({k: v for k, v in r.items() if k.startswith("library_") or k in ("refined_share", "lazy_s",
+                                                                                        "sweep")})
+        entry.update({f"{phase}_launches": counts[name] for phase, counts in phase_counts.items()})
+        if name == "radial_gram_highd":
+            entry.update(highd_d16)
+        if name == "radial_gram_diag_highd":
+            entry["value_grad_d2_launches"] = highd["value_grad_launches"]["radial_gram_d2_highd"]
+            entry["value_grad_n"] = highd["results"]["value_grad"]
+        if name == "radial_gram_cols_highd":
+            entry["lazy_value_grad"] = highd["results"]["lazy_value_grad"]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,7 @@ does not need there):
 Each kernel is held against its plain PyTorch version on the same inputs.
 """
 
+import importlib
 import math
 
 import numpy as np
@@ -28,12 +29,15 @@ from albatross_tpu_torch.ops.radial_gram import (
     PROFILES,
     plain_radial_gram,
     plain_radial_gram_diag_batched,
+    plain_radial_gram_tiled,
     radial_gram,
     radial_gram_cols,
     radial_gram_diag_batched,
+    tiled_squared_distances,
 )
 
 pytestmark = pytest.mark.cuda
+rg = importlib.import_module("albatross_tpu_torch.ops.radial_gram")
 
 
 @pytest.fixture
@@ -156,6 +160,266 @@ def test_gram_kernel_rejects_bad_inputs(cuda):
         radial_gram(X.half(), X.half(), 1.0, 1.0)
     with pytest.raises(ValueError):
         radial_gram(X.T, X.T, 1.0, 1.0)
+
+
+def _line(n, d, seed, offset=1000.0):
+    """n f32 points of the 32-feature GP's law in R^d (a line through the
+    offset, sorted along it, plus 0.05 noise), on the card."""
+    g = torch.Generator().manual_seed(seed)
+    t = torch.sort(100.0 * torch.rand(n, generator=g, dtype=torch.float64)).values
+    u = torch.randn(d, generator=g, dtype=torch.float64)
+    u = u / u.norm()
+    return (offset + t[:, None] * u + 0.05 * torch.randn((n, d), generator=g, dtype=torch.float64)).float().cuda()
+
+
+# The high-D branch (f32, D >= 8) against its plain version on the card:
+# both about f32-accurate contractions (3xTF32 against torch.matmul's
+# FP32), refined tiles exact in both; 1e-5 sigma^2 as the gram's f32
+# tolerance above.  A tile whose minimum sits at the refinement cut may
+# refine in one and not the other: the far-field error there is smaller.
+HIGHD_ATOL = 1e-5
+
+
+@pytest.mark.parametrize("shape", [(300, 141), (130, 258), (333, 4099), (200, 256), (5, 3)])
+@pytest.mark.parametrize("profile", PROFILES)
+@pytest.mark.parametrize("d", [8, 9, 33, 64])
+def test_highd_gram_matches_tiled(cuda, profile, d, shape):
+    """The cross form and K(X, X) + diag at D >= 8 (f32) launch the
+    tensor-core branch (counted apart) and match plain_radial_gram_tiled
+    and the f64 closed form; K(X, X) is bitwise symmetric with its diagonal
+    exactly sigma^2 + diag."""
+    n, m = shape
+    A = _line(n + m, d, seed=d + n)
+    perm = torch.randperm(n + m, generator=torch.Generator().manual_seed(n)).cuda()
+    X, Y = A[perm[:n].sort().values].contiguous(), A[perm[n:].sort().values].contiguous()
+    diag = (0.1 + torch.rand(n, generator=torch.Generator().manual_seed(m))).cuda()
+    _build.reset_launch_counts()
+    got = radial_gram(X, Y, 2.0, 1.5, profile)
+    K = radial_gram(X, X, 2.0, 1.5, profile, diag_add=diag)
+    assert _build.LAUNCHES["radial_gram_highd"] == 1 and _build.LAUNCHES["radial_gram_diag_highd"] == 1
+    assert _build.LAUNCHES["radial_gram"] == 0 and _build.LAUNCHES["radial_gram_diag"] == 0
+    atol = HIGHD_ATOL * 1.5**2
+    torch.testing.assert_close(got, plain_radial_gram_tiled(X, Y, 2.0, 1.5, profile), rtol=0, atol=atol)
+    torch.testing.assert_close(got.double(), plain_radial_gram(X.double(), Y.double(), 2.0, 1.5, profile),
+                               rtol=0, atol=atol)
+    assert torch.equal(K, K.T)
+    s = torch.tensor(1.5, device=cuda)
+    assert torch.equal(K.diagonal(), s * s + diag)
+    torch.testing.assert_close(K, plain_radial_gram_tiled(X, X, 2.0, 1.5, profile, diag), rtol=0, atol=atol)
+
+
+def _lowd_cases():
+    """name -> (X, Y, diag, profile): grams below D = 8, f32 and f64, cross
+    and training covariance, whose outputs must keep the bits they had
+    before the high-D branch."""
+    cases = {}
+    for d in (1, 3, 7):
+        for dtype in (torch.float32, torch.float64):
+            g = torch.Generator().manual_seed(11 + d)
+            X = (20.0 * torch.rand((333, d), generator=g, dtype=torch.float64)).to("cuda", dtype)
+            Y = (20.0 * torch.rand((141, d), generator=g, dtype=torch.float64)).to("cuda", dtype)
+            diag = torch.rand(333, generator=g, dtype=torch.float64).to("cuda", dtype)
+            profile = PROFILES[d % 4]
+            cases[f"d{d} {str(dtype)[6:]} cross"] = (X, Y, None, profile)
+            cases[f"d{d} {str(dtype)[6:]} covariance"] = (X, X, diag, profile)
+    return cases
+
+
+# sha256 (first 16 hex digits) of each case's output from the kernel
+# before its high-D branch (commit c33de6f), on NVIDIA H100 80GB HBM3
+LOWD_SHA256 = {
+    "d1 float32 cross": "f1c9396af2342324", "d1 float32 covariance": "39107d3c1da125a6",
+    "d1 float64 cross": "55c91e0a1342fcec", "d1 float64 covariance": "c78a84a6f0bbab6c",
+    "d3 float32 cross": "f92c0759d4dd0daf", "d3 float32 covariance": "5ff1130a17c03882",
+    "d3 float64 cross": "820f0cac8d2e320f", "d3 float64 covariance": "4462d21c755692b4",
+    "d7 float32 cross": "a2e9dca87ee69b60", "d7 float32 covariance": "dbfb500dba498d91",
+    "d7 float64 cross": "7687e2ee913649bd", "d7 float64 covariance": "1edb029284affdec",
+}
+
+
+def test_lowd_gram_outputs_keep_their_bits(cuda):
+    """Below D = 8 the kernel keeps its code and its bits: each output of
+    _lowd_cases hashes as it did before the high-D branch."""
+    import hashlib
+
+    _build.reset_launch_counts()
+    for name, (X, Y, diag, profile) in _lowd_cases().items():
+        out = radial_gram(X, Y, 4.0, 1.5, profile, diag_add=diag)
+        assert hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16] == LOWD_SHA256[name], name
+    assert sum(v for k, v in _build.LAUNCHES.items() if k.endswith("_highd")) == 0
+
+
+def _elementwise_f32(X, Y, ls, sigma, profile):
+    """The kernel's elementwise loop at any D: its ``radial_gram_f32`` entry,
+    which the wrapper calls only below D = 8."""
+    import ctypes
+
+    lib = _build.load("radial_gram")
+    out = torch.empty((X.shape[0], Y.shape[0]), device=X.device)
+    fn = lib.radial_gram_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_float,
+                                           ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    code = fn(X.data_ptr(), Y.data_ptr(), None, out.data_ptr(), X.shape[0], Y.shape[0], X.shape[1], ls, sigma,
+              PROFILES.index(profile), torch.cuda.current_stream().cuda_stream)
+    assert code == 0
+    return out
+
+
+@pytest.mark.parametrize("profile", PROFILES)
+def test_highd_refined_tiles_hold_the_elementwise_bits(cuda, profile):
+    """A refined tile of the high-D branch holds the elementwise loop's
+    bits (the same arithmetic in the same order), in the cross form and in
+    K(X, X); the other tiles are within HIGHD_ATOL of it."""
+    X, Y = _line(700, 32, seed=3), _line(300, 32, seed=4)
+    for P, Q in ((X, Y), (X, X)):
+        got = radial_gram(P, Q, 2.0, 1.5, profile)
+        _, refined = tiled_squared_distances(P, Q, 2.0, profile)
+        inside = refined.repeat_interleave(128, 0).repeat_interleave(128, 1)[:P.shape[0], :Q.shape[0]].cuda()
+        assert inside.any() and not inside.all()
+        loop = _elementwise_f32(P, Q, 2.0, 1.5, profile)
+        assert torch.equal(got[inside], loop[inside])
+        assert (got - loop).abs().max() <= HIGHD_ATOL * 1.5**2
+
+
+@pytest.mark.parametrize("d", [9, 32])
+def test_highd_column_blocks_equal_the_training_covariance(cuda, d):
+    """The lazy loop's column blocks at D >= 8 follow the global 128-grid:
+    each equals those entries of the materialized training covariance bit
+    for bit, at j0 = 0, 1024, the last (ragged) block and an unaligned
+    one."""
+    n = 2600
+    x = _line(n, d, seed=d)
+    diag = (0.01 + torch.rand(n, generator=torch.Generator().manual_seed(d))).cuda()
+    K = radial_gram(x, x, 2.0, 1.5, "matern_52", diag_add=diag)
+    _build.reset_launch_counts()
+    for j0, b in ((0, 1024), (1024, 1024), (2048, 552), (100, 129)):
+        col = radial_gram_cols(x, j0, b, 2.0, 1.5, "matern_52", diag)
+        assert col.shape == (n - j0, b)
+        assert torch.equal(col, K[j0:, j0:j0 + b])
+    assert _build.LAUNCHES["radial_gram_cols_highd"] == 4 and _build.LAUNCHES["radial_gram_cols"] == 0
+
+
+@pytest.mark.parametrize("d", [8, 33])
+def test_highd_batched_slices_equal_the_unbatched_kernel(cuda, d):
+    """The walker-batched training covariance at D >= 8: one launch, each
+    slice the unbatched high-D kernel's output bit for bit (the refinement
+    cut from each walker's length scale) and the tiled version's within
+    HIGHD_ATOL."""
+    w, n = 3, 517
+    x = _line(n, d, seed=d)
+    g = torch.Generator().manual_seed(d)
+    ls = (1.0 + 2.0 * torch.rand(w, generator=g)).cuda()
+    sigma = (0.5 + torch.rand(w, generator=g)).cuda()
+    diag = (0.01 + torch.rand((w, n), generator=g)).cuda()
+    _build.reset_launch_counts()
+    K = radial_gram_diag_batched(x, ls, sigma, diag, "squared_exponential")
+    assert _build.LAUNCHES["radial_gram_diag_batched_highd"] == 1 and K.shape == (w, n, n)
+    for i in range(w):
+        one = radial_gram(x, x, float(ls[i]), float(sigma[i]), "squared_exponential", diag_add=diag[i])
+        assert torch.equal(K[i], one)
+        tiled = plain_radial_gram_tiled(x, x, float(ls[i]), float(sigma[i]), "squared_exponential", diag[i])
+        torch.testing.assert_close(K[i], tiled, rtol=0, atol=HIGHD_ATOL * float(sigma[i]) ** 2)
+
+
+def test_highd_backward_launches_the_squared_distance_mode(cuda):
+    """value+grad at D = 32 through the public API: the fused covariance's
+    backward launches the kernel once in its squared-distance mode, and
+    the gradient matches the closed-form backward's (X requiring grad keeps
+    that one) within 1e-4 of its largest entry."""
+    x = _line(2304, 32, seed=7)
+    y = torch.sin(0.3 * (x - 1000.0).sum(-1) / math.sqrt(32.0))
+    kernel = pt.SquaredExponential(2.0, 1.0) + pt.measurement_only(pt.IndependentNoise(0.3, assume_unique=True))
+    model = pt.gp_from_covariance(kernel, jitter=1e-4)
+    data = pt.RegressionDataset.create(x, y)
+    _build.reset_launch_counts()
+    p = model.get_tunable_parameters().values.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(-model.set_tunable_params(p).log_likelihood(data), p)
+    assert _build.LAUNCHES["radial_gram_diag_highd"] == 1 and _build.LAUNCHES["radial_gram_d2_highd"] == 1
+    xg = x.clone().requires_grad_(True)
+    data_g = pt.RegressionDataset.create(xg, y)
+    p = model.get_tunable_parameters().values.clone().requires_grad_(True)
+    _build.reset_launch_counts()
+    (g_closed, _) = torch.autograd.grad(-model.set_tunable_params(p).log_likelihood(data_g), (p, xg))
+    assert _build.LAUNCHES["radial_gram_d2_highd"] == 0
+    assert (g - g_closed).abs().max() <= 1e-4 * g_closed.abs().max()
+
+
+@pytest.mark.parametrize("d", [9, 32])
+def test_highd_squared_distance_blocks_match_tiled(cuda, d):
+    """The backward's squared-distance launches (profile id 4) against
+    tiled_squared_distances: the column form at j0 = 0, 1024 and the
+    ragged last block, and the cross form's row blocks, within 1e-6 of
+    the block's largest d^2 (f32 contractions and exact sums in another
+    order); and the blocked backward's gradient equal to one block's
+    within 1e-5 of its largest entry."""
+    n = 2600
+    x, y = _line(n, d, seed=d), _line(700, d, seed=d + 1)
+    for j0, b in ((0, 1024), (1024, 1024), (2048, 552)):
+        got = rg._launch(x[j0:], x[j0:j0 + b], 2.0, 1.0, None, "matern_52", "radial_gram_d2", (x, j0, b),
+                         squared_distance=True)
+        ref = tiled_squared_distances(x[j0:], x[j0:j0 + b], 2.0, "matern_52")[0]
+        assert (got - ref).abs().max() <= 1e-6 * ref.abs().max()
+    got = rg._launch(x[1024:2048], y, 2.0, 1.0, None, "matern_52", "radial_gram_d2", squared_distance=True)
+    ref = tiled_squared_distances(x, y, 2.0, "matern_52")[0][1024:2048]
+    assert (got - ref).abs().max() <= 1e-6 * ref.abs().max()
+
+    g = torch.Generator().manual_seed(d)
+    cot, cot_y = torch.randn((n, n), generator=g).cuda(), torch.randn((n, 700), generator=g).cuda()
+    diag = torch.full((n,), 0.1, device=cuda)
+
+    def grads():
+        ls, sg = torch.tensor(2.0, device=cuda, requires_grad=True), torch.tensor(1.5, device=cuda, requires_grad=True)
+        K = rg._RadialGramFunction.apply(x, x, ls, sg, diag, "matern_52", 2.0, 1.5, "radial_gram_diag", None)
+        C = rg._RadialGramFunction.apply(x, y, ls, sg, None, "matern_52", 2.0, 1.5, "radial_gram", None)
+        return torch.stack(torch.autograd.grad(torch.sum(K * cot) + torch.sum(C * cot_y), (ls, sg)))
+
+    _build.reset_launch_counts()
+    whole = grads()
+    assert _build.LAUNCHES["radial_gram_d2_highd"] == 2
+    kept = rg._D2_BLOCK_ELEMENTS
+    rg._D2_BLOCK_ELEMENTS = 1024 * 700  # blocks of 256 columns of K(x, x), 1024 rows of the cross form
+    try:
+        _build.reset_launch_counts()
+        blocked = grads()
+        assert _build.LAUNCHES["radial_gram_d2_highd"] == len(range(0, n, 256)) + 3
+    finally:
+        rg._D2_BLOCK_ELEMENTS = kept
+    assert (blocked - whole).abs().max() <= 1e-5 * whole.abs().max()
+
+
+def test_highd_tagged_gram_is_bitwise_symmetric(cuda):
+    """A tagged batch of two 32-feature sub-batches on the card: K(X, X)
+    launches the mirrored form for each tag's block and the cross form
+    once for the pair of tags (its transpose is the other block), so it is
+    bitwise symmetric, and within HIGHD_ATOL of f64."""
+    a, b = _line(700, 32, seed=21), _line(450, 32, seed=22)
+    tags = torch.zeros(1150, dtype=torch.int64)
+    tags[torch.randperm(1150, generator=torch.Generator().manual_seed(0))[:450]] = 1
+    batch = pt.TaggedBatch.create(tags.numpy(), {0: a, 1: b})
+    kernel = pt.SquaredExponential(2.0, 1.5)
+    _build.reset_launch_counts()
+    K = kernel(batch)
+    assert _build.LAUNCHES["radial_gram_diag_highd"] == 0 and _build.LAUNCHES["radial_gram_highd"] == 3
+    assert torch.equal(K, K.T)
+    ref = pt.SquaredExponential(2.0, 1.5)(pt.TaggedBatch.create(tags.numpy(), {0: a.double(), 1: b.double()}))
+    assert (K.double() - ref).abs().max() <= HIGHD_ATOL * 1.5**2
+
+
+def test_highd_cross_form_row_panels_are_symmetric_to_rounding(cuda):
+    """What the sharded grams of parallel/ see at D = 32: a rank's rows
+    against all of X by the cross form on two distinct batches.  Its
+    diagonal block is symmetric only to the contraction's rounding, within
+    HIGHD_ATOL (entries (i, j) and (j, i) come from two tiles); below D = 8
+    the same panel is bitwise symmetric."""
+    for d in (32, 7):
+        x = _line(2048, d, seed=d)
+        panel = radial_gram(x[512:1536].clone(), x, 2.0, 1.5, "squared_exponential")
+        block = panel[:, 512:1536]
+        if d < 8:
+            assert torch.equal(block, block.T)
+        else:
+            assert (block - block.T).abs().max() <= HIGHD_ATOL * 1.5**2
 
 
 # every panel size cuda_block_size can pick; with 3, 5, 6 and 7 tiles the
@@ -633,6 +897,8 @@ def test_mixed_feature_model_launches_the_gram_kernel(cuda):
     counts, total, pred, diff = out["cuda"]
     _, _, ref, ref_diff = out["cpu"]
     assert counts == {"radial_gram": 1, "radial_gram_diag": 0, "radial_gram_cols": 0, "radial_gram_diag_batched": 0,
+                      "radial_gram_highd": 0, "radial_gram_diag_highd": 0, "radial_gram_cols_highd": 0,
+                      "radial_gram_diag_batched_highd": 0, "radial_gram_d2_highd": 0,
                       "panel_cholinv": 3, "panel_cholinv_batched": 0}
     assert total["radial_gram"] == 1 + 1 + 2  # the fit, the cross gram, the differences' two grams
     errors = [_max_rel(pred.mean, ref.mean), _max_rel(pred.variance, ref.variance),

@@ -164,8 +164,10 @@ def _spy(monkeypatch):
 def test_fused_min_n_auto_upgrade(monkeypatch):
     """The default "right" switches to the lazy loop from a (patched)
     CHOLESKY_FUSED_MIN_N on and not below it, never when the threshold is
-    0, never for D > 8 or a kernel outside the fused pattern; "left"
-    raises.  The upgraded value equals the materialized one."""
+    0 or for a kernel outside the fused pattern, at every D (the JAX
+    package keeps D > 8 materialized; the port's column producer is the
+    gram kernel there too); "left" raises.  The upgraded value equals the
+    materialized one."""
     calls = _spy(monkeypatch)
     n = 3072
     _, tm = _models("bench")
@@ -183,15 +185,17 @@ def test_fused_min_n_auto_upgrade(monkeypatch):
     assert float(tm.log_likelihood(data)) == pytest.approx(ll_ref, rel=VALUE_RTOL)
     assert calls == [(n, 1)]
     other.log_likelihood(data)
+    assert calls == [(n, 1)]
     xd, yd = _inputs(n, d=9)
     tm.log_likelihood(pt.RegressionDataset.create(torch.as_tensor(xd), torch.as_tensor(yd)))
+    assert calls == [(n, 1), (n, 9)]
     small_x, small_y = _inputs(2048)
     monkeypatch.setattr(config, "CHOLESKY_FUSED_MIN_N", 1024)
     tm.log_likelihood(pt.RegressionDataset.create(torch.as_tensor(small_x), torch.as_tensor(small_y)))
-    assert calls == [(n, 1)]  # the pattern, D <= 8 and n > 2048 are all required
+    assert calls == [(n, 1), (n, 9)]  # the pattern and n > 2048 are both required
     xd, yd = _inputs(n, d=8)
     tm.log_likelihood(pt.RegressionDataset.create(torch.as_tensor(xd), torch.as_tensor(yd)))
-    assert calls == [(n, 1), (n, 8)]
+    assert calls == [(n, 1), (n, 9), (n, 8)]
     monkeypatch.setattr(config, "CHOLESKY_ALGORITHM", "left")
     with pytest.raises(ValueError, match="not ported"):
         tm.log_likelihood(data)
@@ -225,7 +229,11 @@ def test_nlml_terms_with_the_gp_column_producer():
     x, y = _inputs(2600)
     xt = torch.as_tensor(x)
     col_fn = tm._training_cov_col_fn(pt.as_measurement(xt))
-    assert tm._training_cov_col_fn(pt.as_measurement(torch.zeros((5, 9)))) is None  # D > 8
+    # D > 8 too: the port's column producer is the gram kernel at every D
+    x9 = torch.as_tensor(np.random.default_rng(9).uniform(0, 10, (300, 9)))
+    col9 = tm._training_cov_col_fn(pt.as_measurement(x9))(128, 128)
+    K9 = fused_training_covariance(tm.covariance_function, x9, None, tm.jitter)
+    assert torch.equal(col9, K9[128:, 128:256])
     got = CholeskyFactor.nlml_terms(None, torch.as_tensor(y), col_fn=col_fn)
     K = fused_training_covariance(tm.covariance_function, xt[:, None], None, tm.jitter)
     ref = CholeskyFactor.nlml_terms(K, torch.as_tensor(y), assume_symmetric=True)

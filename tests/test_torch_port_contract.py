@@ -155,7 +155,9 @@ def test_cpu_tensors_never_launch_kernels():
     assert torch.isfinite(ll) and torch.isfinite(pred.variance).all()
     assert ll.dtype == torch.float32
     assert _build.LAUNCHES == {"radial_gram": 0, "radial_gram_diag": 0, "radial_gram_cols": 0,
-                               "radial_gram_diag_batched": 0, "panel_cholinv": 0, "panel_cholinv_batched": 0}
+                               "radial_gram_diag_batched": 0, "radial_gram_highd": 0, "radial_gram_diag_highd": 0,
+                               "radial_gram_cols_highd": 0, "radial_gram_diag_batched_highd": 0,
+                               "radial_gram_d2_highd": 0, "panel_cholinv": 0, "panel_cholinv_batched": 0}
 
 
 def test_params_from_numpy():

@@ -107,6 +107,30 @@ def test_tagged_gram_cross_and_diag_match_jax():
     np.testing.assert_allclose(K[np.ix_(pos, bias)], 0.09, rtol=1e-12)
 
 
+def test_tagged_gram_of_one_batch_mirrors_its_cross_blocks(monkeypatch):
+    """K(X, X) over a tagged batch computes the blocks (a, b) with a >= b
+    and takes (b, a) as the transpose of (a, b): one call fewer here, a
+    bitwise symmetric result, and the same matrix as the blocks computed
+    one by one (against an equal but distinct batch)."""
+    _, tb, _ = _tagged(dtype=np.float32)
+    kern = tk.SquaredExponential(2.0, 1.5)
+    calls = []
+    kept = type(kern)._tagged_matrix
+
+    def counted(self, X, Y, tx, ty, x_meas, y_meas):
+        calls.append((tx, ty))
+        return kept(self, X, Y, tx, ty, x_meas, y_meas)
+
+    monkeypatch.setattr(type(kern), "_tagged_matrix", counted)
+    K = kern(tb)
+    a, b = tb.tags
+    assert sorted(calls) == sorted([(a, a), (b, a), (b, b)])
+    assert torch.equal(K, K.T)
+    calls.clear()
+    other = tk.TaggedBatch(tb.tags, tb.features, tb.order)
+    assert torch.equal(kern.matrix_or_none(tb, other), K) and len(calls) == 4
+
+
 def test_zero_blocks_take_the_blocks_dtype_and_device():
     _, tb, _ = _tagged(dtype=np.float32)
     tkern = tk.for_tag(tk.SquaredExponential(2.0, 1.5), POS) + tk.for_tag(tk.IndependentNoise(0.7), BIAS)
