@@ -26,10 +26,14 @@ any tile whose smallest d^2 lies inside the profile's support
 D >= 8 on its matrix unit.  K(x, x) -- the same tensor on both sides --
 is mirrored (tiles I >= J, each written twice), so it is bitwise
 symmetric; column blocks and walker slices follow the same global grid and
-equal it bit for bit.  ``plain_radial_gram_tiled`` is that branch's plain
-version in torch ops (the tests and ``chip_smoke.py`` hold the kernel to
-it); CPU tensors keep the exact closed form at every D, and f64 keeps the
-kernel's exact elementwise loop.
+equal it bit for bit.  The tiles' centres come from each input's
+per-tile feature sums, which the symmetric forms keep across launches on
+one tensor (``_tile_sums``: the lazy loop's column blocks, the backward's
+d^2 blocks and the sampler's half-steps compute them once).
+``plain_radial_gram_tiled`` is that branch's plain version in torch ops
+(the tests and ``chip_smoke.py`` hold the kernel to it); CPU tensors keep
+the exact closed form at every D, and f64 keeps the kernel's exact
+elementwise loop.
 
 Gradients: when an input requires grad, the CUDA forward is wrapped in a
 ``torch.autograd.Function`` whose backward differentiates the plain closed
@@ -54,6 +58,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import weakref
 
 import torch
 
@@ -141,6 +146,26 @@ def _edge_tiles(A, tile: int):
     return A.reshape(padded // tile, tile, A.shape[1])
 
 
+_SUM_WARPS = 8  # the high-D pre-pass's warps: warp w sums rows w, w + 8, .. of a tile
+
+
+def tile_feature_sums(A, tile: int = _TILE):
+    """(tiles, D) feature sums of A's tiles of ``tile`` rows (the last
+    edge-padded), in the order of the high-D launch's pre-pass
+    (``highd_sums_kernel``): warp w adds rows w, w + 8, .. in turn, then
+    the eight warps' sums are added in turn, each addition rounded to A's
+    dtype.  So c = (S_x / tile + S_y / tile) / 2 has the kernel's bits."""
+    t = _edge_tiles(as_matrix(A), tile)
+    parts = t.reshape(t.shape[0], tile // _SUM_WARPS, _SUM_WARPS, t.shape[2])  # (tiles, q, warp, D)
+    warp_sums = torch.zeros_like(parts[:, 0])
+    for q in range(parts.shape[1]):
+        warp_sums = warp_sums + parts[:, q]
+    total = torch.zeros_like(warp_sums[:, 0])
+    for w in range(_SUM_WARPS):
+        total = total + warp_sums[:, w]
+    return total
+
+
 def tiled_squared_distances(X, Y, length_scale, profile: str, tile: int = _TILE):
     """(d2, refined): the high-D branch's squared distances, (N, M), and
     which (row tile, column tile) pairs it recomputed exactly, a bool
@@ -148,7 +173,8 @@ def tiled_squared_distances(X, Y, length_scale, profile: str, tile: int = _TILE)
 
     The JAX package's ``_gram_kernel`` at D >= 8 in torch ops: for each
     tile pair, c = (mean of the x tile + mean of the y tile) / 2 (ragged
-    tiles edge-padded), d^2 = max(|x - c|^2 + |y - c|^2 - 2 (x - c).(y - c),
+    tiles edge-padded; the means from ``tile_feature_sums``, as the kernel
+    takes them), d^2 = max(|x - c|^2 + |y - c|^2 - 2 (x - c).(y - c),
     0) by a full-f32 ``torch.matmul``; a tile whose smallest d^2 (over its
     entries inside the matrix) is at most ``_REFINE_D2_OVER_LS2[profile] *
     ls^2`` is recomputed exactly by ``_plain_d2``.  K(x, x) (X and Y one
@@ -159,7 +185,7 @@ def tiled_squared_distances(X, Y, length_scale, profile: str, tile: int = _TILE)
     symmetric = _same_tensor(X, Y)
     xt, yt = _edge_tiles(X, tile), _edge_tiles(Y, tile)
     nt, mt = xt.shape[0], yt.shape[0]
-    mx, my = xt.mean(dim=1), yt.mean(dim=1)
+    mx, my = tile_feature_sums(X, tile) * (1.0 / tile), tile_feature_sums(Y, tile) * (1.0 / tile)
     ls = torch.as_tensor(length_scale, dtype=X.dtype, device=X.device)
     cut = _REFINE_D2_OVER_LS2[profile] * ls * ls
     d2 = torch.empty((nt * tile, mt * tile), dtype=X.dtype, device=X.device)
@@ -218,6 +244,35 @@ def _highd(X) -> bool:
     return X.dtype == torch.float32 and X.shape[1] >= MXU_MIN_D
 
 
+def _lower_tiles(n: int, j0: int, b: int) -> list:
+    """The symmetric launch's tiles (I, J) of the global 128-grid in entry
+    order: column tile J from j0's to (j0 + b - 1)'s, each with its row
+    tiles J .. last (the tile and exact kernels' ``lower_tile`` decodes an
+    entry into this pair)."""
+    nt, jt0 = -(-n // _TILE), j0 // _TILE
+    return [(I, J) for J in range(jt0, (j0 + b - 1) // _TILE + 1) for I in range(J, nt)]
+
+
+def _lower_tile(k: int, a: int) -> tuple:
+    """(q, r) of entry k as the C code's ``lower_tile`` computes it: column
+    tile jt0 + q, row tile jt0 + q + r, with a row tiles from jt0 to the
+    last (its closed form, then corrected by whole steps)."""
+    A = 2.0 * a + 1.0
+    s = int((A - math.sqrt(A * A - 8.0 * k)) * 0.5)
+    while s > 0 and s * a - s * (s - 1) // 2 > k:
+        s -= 1
+    while (s + 1) * a - (s + 1) * s // 2 <= k:
+        s += 1
+    return s, k - (s * a - s * (s - 1) // 2)
+
+
+def _mirror_meets(I: int, j0: int, b: int) -> bool:
+    """Whether a lower tile (I, J)'s mirror (J, I) has entries in a column
+    block [j0, j0 + b): the tile kernel stages and stores it only then (its
+    rows, J's, always meet the block's rows)."""
+    return I * _TILE < j0 + b
+
+
 def _sym_tiles(n: int, j0: int, b: int) -> int:
     """Lower tiles of the global 128-grid meeting rows [j0, n) x columns
     [j0, j0 + b) of K(x, x): the symmetric launch's grid, as the C code
@@ -227,10 +282,79 @@ def _sym_tiles(n: int, j0: int, b: int) -> int:
     return cols * row_tiles - cols * (cols - 1) // 2
 
 
-def _work(entries: int, device):
-    """Device scratch for the high-D launch's list of near tiles: a counter
-    and at most ``entries`` tile indices (8-byte words)."""
-    return torch.empty((1 + entries,), dtype=torch.int64, device=device)
+def _work_words(entries: int, sum_tiles: int, d: int) -> int:
+    """8-byte words of device scratch for one high-D launch, in the C code's
+    layout: the tile kernel's entry counter and the near tiles' count, a
+    list word for each of the launch's ``entries`` tiles (any may be near),
+    then the f32 feature sums of ``sum_tiles`` 128-row tiles."""
+    return 2 + entries + -(-(sum_tiles * d) // 2)
+
+
+def _cross_work_words(n: int, m: int, d: int) -> int:
+    """The cross form's scratch: every tile, the sums of x's and y's tiles."""
+    nt, mt = -(-n // _TILE), -(-m // _TILE)
+    return _work_words(nt * mt, nt + mt, d)
+
+
+def _sym_work_words(n: int, j0: int, b: int, batch: int = 1) -> int:
+    """The symmetric forms' scratch: every lower tile of each walker (their
+    sums live in ``_tile_sums``'s buffer)."""
+    return _work_words(batch * _sym_tiles(n, j0, b), 0, 0)
+
+
+# input tensor's id -> (weak reference to it, its version, the stream,
+# the sums of its 128-row tiles): the symmetric launches' centres, kept
+# across launches on one x (the lazy loop's column blocks, the backward's
+# d^2 blocks, the sampler's half-steps)
+_TILE_SUMS: dict = {}
+
+
+def _tile_sums(x, stream: int):
+    """(sums, ready): the f32 feature sums of every 128-row tile of x, a
+    (ceil(n / 128), d) buffer on x's device, and whether an earlier launch
+    on this stream already computed them for x as it is now (its version
+    unchanged); when not, the launch computes them into the buffer."""
+    try:
+        version = x._version
+    except RuntimeError:  # inference tensors keep no version: no reuse
+        version = None
+    key = id(x)
+    hit = _TILE_SUMS.get(key)
+    if version is not None and hit is not None and hit[0]() is x and hit[1:3] == (version, stream):
+        return hit[3], True
+    sums = torch.empty((-(-x.shape[0] // _TILE), x.shape[1]), dtype=torch.float32, device=x.device)
+    if version is not None:
+        _TILE_SUMS[key] = (weakref.ref(x, lambda _, key=key: _TILE_SUMS.pop(key, None)), version, stream, sums)
+    return sums, False
+
+
+def _work(words: int, device):
+    return torch.empty((words,), dtype=torch.int64, device=device)
+
+
+_P, _I64, _I32, _F32, _F64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float, ctypes.c_double
+# the library's C entries and their argument types
+_ARGTYPES = {
+    "radial_gram_f32": [_P] * 4 + [_I64, _I64, _I32, _F32, _F32, _I32, _P],
+    "radial_gram_f64": [_P] * 4 + [_I64, _I64, _I32, _F64, _F64, _I32, _P],
+    "radial_gram_diag_batched_f32": [_P] * 5 + [_I64, _I32, _I64, _I32, _P],
+    "radial_gram_diag_batched_f64": [_P] * 5 + [_I64, _I32, _I64, _I32, _P],
+    "radial_gram_highd_f32": [_P] * 4 + [_I64, _I64, _I32, _F32, _F32, _F32, _I32, _P, _P],
+    "radial_gram_highd_sym_f32": [_P] * 3 + [_I64, _I32, _I64, _I64, _F32, _F32, _F32, _I32, _P, _P, _I32, _P],
+    "radial_gram_highd_batched_f32": [_P] * 5 + [_I64, _I32, _I64, _F32, _I32, _P, _P, _I32, _P],
+}
+_BOUND: set = set()
+
+
+def _lib():
+    """The gram library, its entries' argument types set once a process."""
+    lib = _build.load("radial_gram")
+    if id(lib) not in _BOUND:
+        for name, argtypes in _ARGTYPES.items():
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = ctypes.c_int, argtypes
+        _BOUND.add(id(lib))
+    return lib
 
 
 def _launch(X, Y, length_scale: float, sigma: float, diag, profile: str, counter: str, cols=None,
@@ -239,7 +363,7 @@ def _launch(X, Y, length_scale: float, sigma: float, diag, profile: str, counter
     and Y are x[j0:] and x[j0:j0 + b] (the lazy loop's column block); in the
     high-D branch the launch then follows x's global tile grid, and
     ``squared_distance`` writes the refined d^2 (diag must be None)."""
-    lib = _build.load("radial_gram")
+    lib = _lib()
     n, d = X.shape
     m = Y.shape[0]
     out = torch.empty((n, m), dtype=X.dtype, device=X.device)
@@ -248,34 +372,20 @@ def _launch(X, Y, length_scale: float, sigma: float, diag, profile: str, counter
     if _highd(X):
         profile_id = _SQUARED_DISTANCE_ID if squared_distance else _PROFILE_ID[profile]
         ratio = _REFINE_D2_OVER_LS2[profile]
-        scalars = [ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         if cols is not None or _same_tensor(X, Y):
             x, j0, b = cols if cols is not None else (X, 0, n)
-            work = _work(_sym_tiles(x.shape[0], j0, b), X.device)
-            fn = lib.radial_gram_highd_sym_f32
-            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
-                                                   *scalars]
-            code = fn(x.data_ptr(), diag_ptr, out.data_ptr(), x.shape[0], d, j0, b, length_scale, sigma, ratio,
-                      profile_id, work.data_ptr(), stream)
+            work = _work(_sym_work_words(x.shape[0], j0, b), X.device)
+            sums, ready = _tile_sums(x, stream)
+            code = lib.radial_gram_highd_sym_f32(x.data_ptr(), diag_ptr, out.data_ptr(), x.shape[0], d, j0, b,
+                                                 length_scale, sigma, ratio, profile_id, work.data_ptr(),
+                                                 sums.data_ptr(), ready, stream)
         else:
-            work = _work(-(-n // _TILE) * -(-m // _TILE), X.device)
-            fn = lib.radial_gram_highd_f32
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, *scalars]
-            code = fn(X.data_ptr(), Y.data_ptr(), diag_ptr, out.data_ptr(), n, m, d, length_scale, sigma, ratio,
-                      profile_id, work.data_ptr(), stream)
-        fn.restype = ctypes.c_int
+            work = _work(_cross_work_words(n, m, d), X.device)
+            code = lib.radial_gram_highd_f32(X.data_ptr(), Y.data_ptr(), diag_ptr, out.data_ptr(), n, m, d,
+                                             length_scale, sigma, ratio, profile_id, work.data_ptr(), stream)
         counter += "_highd"
     else:
-        if X.dtype == torch.float32:
-            fn, scalar = lib.radial_gram_f32, ctypes.c_float
-        else:
-            fn, scalar = lib.radial_gram_f64, ctypes.c_double
-        fn.restype = ctypes.c_int
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int, scalar, scalar,
-            ctypes.c_int, ctypes.c_void_p,
-        ]
+        fn = lib.radial_gram_f32 if X.dtype == torch.float32 else lib.radial_gram_f64
         code = fn(X.data_ptr(), Y.data_ptr(), diag_ptr, out.data_ptr(), n, m, d, length_scale, sigma,
                   _PROFILE_ID[profile], stream)
     _build.count_launch(counter)
@@ -422,7 +532,7 @@ def radial_gram(X, Y, length_scale, sigma, profile: str = "squared_exponential",
 
 
 def _launch_diag_batched(X, length_scales, sigmas, diag, profile: str):
-    lib = _build.load("radial_gram")
+    lib = _lib()
     n, d = X.shape
     w = length_scales.shape[0]
     out = torch.empty((w, n, n), dtype=X.dtype, device=X.device)
@@ -430,18 +540,14 @@ def _launch_diag_batched(X, length_scales, sigmas, diag, profile: str):
     pointers = (X.data_ptr(), length_scales.data_ptr(), sigmas.data_ptr(), diag.data_ptr(), out.data_ptr())
     counter = "radial_gram_diag_batched"
     if _highd(X):
-        work = _work(w * _sym_tiles(n, 0, n), X.device)
-        fn = lib.radial_gram_highd_batched_f32
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_float,
-                                               ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-        code = fn(*pointers, n, d, w, _REFINE_D2_OVER_LS2[profile], _PROFILE_ID[profile], work.data_ptr(), stream)
+        work = _work(_sym_work_words(n, 0, n, w), X.device)
+        sums, ready = _tile_sums(X, stream)
+        code = lib.radial_gram_highd_batched_f32(*pointers, n, d, w, _REFINE_D2_OVER_LS2[profile],
+                                                 _PROFILE_ID[profile], work.data_ptr(), sums.data_ptr(), ready,
+                                                 stream)
         counter += "_highd"
     else:
         fn = lib.radial_gram_diag_batched_f32 if X.dtype == torch.float32 else lib.radial_gram_diag_batched_f64
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
-                                               ctypes.c_void_p]
         code = fn(*pointers, n, d, w, _PROFILE_ID[profile], stream)
     _build.count_launch(counter)
     _build.check(lib, code, f"{counter} kernel")

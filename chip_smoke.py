@@ -423,6 +423,12 @@ HD_SWEEP_D = (8, 16, 32, 64)
 # on NVIDIA H100 80GB HBM3): the low-D code keeps its bits
 MAIN_PATH_SHA256 = {"covariance": "0ef94291f0b9a3b5c01ae54de60e931bbd5c1b6194ba4e8ffcf041e181a20ac3",
                     "cross": "f295cbe18613884b164ef35a0f3f1035dcfece5450e9a8776ce701cf996d5f91"}
+# sha256 of phase (i)'s training covariance and cross covariance from the
+# first tensor-core design (commit f528a61, on NVIDIA H100 80GB HBM3): the
+# far tiles' bits changed with the contraction (wgmma), printed beside
+# the current ones; the near tiles keep the elementwise loop's bits
+HD_FIRST_DESIGN_SHA256 = {"covariance": "4a53b0eb582fbdc17d33d9451a05c9665d92039d0349b83cba5a9cec740b1166",
+                  "cross": "d1ed49ccb6931bc8e300aa84951a1a2340c43e2dd705b22d90a2f303509977f5"}
 # the phase's kernel rows: the high-D branch of each launch form
 HD_SOURCES = {
     "radial_gram_highd": ("albatross_tpu_torch/csrc/radial_gram.cu", "albatross_tpu/ops/pallas_gram.py:81"),
@@ -2981,6 +2987,20 @@ def highd_bound(n: int, m: int, d: int, square: bool, diag: bool) -> tuple[float
     return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
 
 
+def highd_tiles(n: int, m: int, square: bool) -> int:
+    """128 x 128 tiles the high-D kernel computes for an (n, m) gram: every
+    tile of the cross form, the lower tiles of K(x, x) (each written
+    twice)."""
+    nt, mt = -(-n // 128), -(-m // 128)
+    return nt * (nt + 1) // 2 if square else nt * mt
+
+
+def tile_rate(r: dict, tiles: int) -> None:
+    """A kernel row's tile count and its nanoseconds a tile across the card."""
+    r["tiles"], r["ns_per_tile"] = tiles, r["ms"] * 1e6 / tiles
+    print(f"  {tiles} tiles: {r['ns_per_tile']:.1f} ns a tile across the card")
+
+
 def loop_gram(torch, _build, X, Y, ls: float, sigma: float, profile: str, diag=None):
     """The kernel's elementwise loop at any D through its f32 C entry
     (``radial_gram_f32``), which the wrapper calls only below D = 8: the
@@ -3132,6 +3152,8 @@ def check_highd(torch, np, pt, _build, config, card: str) -> dict:
         counts = dict(_build.LAUNCHES)
         if counts[name] != 1 or sum(counts.values()) != 1:
             fail(f"{name}: launches {counts}")
+        sha = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
+        print(f"{name} sha256 {sha} (the first tensor-core design's: {HD_FIRST_DESIGN_SHA256[key]})")
         tiled = plain_radial_gram_tiled(A, B, ls, SIGMA, profile, dg)
         err = (got - tiled).abs().max().item()
         del tiled
@@ -3182,6 +3204,8 @@ def check_highd(torch, np, pt, _build, config, card: str) -> dict:
         r["library_cdist_err"] = (library("donot_use_mm_for_euclid_dist").double() - ref).abs().max().item()
         del ref
         r["bound_ms"], r["bound_by"] = highd_bound(A.shape[0], B.shape[0], HD_D, dg is not None, dg is not None)
+        r["sha256"] = sha
+        tile_rate(r, highd_tiles(A.shape[0], B.shape[0], dg is not None))
         results[name] = r
         print(f"[{card}] {name} ({A.shape[0]}, {B.shape[0]}) D={HD_D}: kernel {r['ms']:.4f} ms, tiled plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bound_ms'] / r['ms']:.1%} "
@@ -3351,6 +3375,7 @@ def check_highd(torch, np, pt, _build, config, card: str) -> dict:
          "bound_ms": W_KERNEL * one_bound, "bound_by": "bytes",
          "library_cdist_mm_ms": W_KERNEL * cuda_ms(torch, lambda: apply_profile(
              profile, torch.cdist(xg, xg, compute_mode="use_mm_for_euclid_dist") ** 2, ls, SIGMA), reps=3, batch=3)}
+    tile_rate(r, W_KERNEL * highd_tiles(N_GRAD, N_GRAD, True))
     results["radial_gram_diag_batched_highd"] = r
     print(f"[{card}] radial_gram_diag_batched_highd ({W_KERNEL}, {N_GRAD}, {N_GRAD}) D={HD_D}: kernel {r['ms']:.4f} "
           f"ms, tiled plain {r['plain_ms']:.4f} ms ({W_KERNEL} walkers in turn), bound {r['bound_ms']:.4f} ms "
@@ -3436,6 +3461,12 @@ def check_highd(torch, np, pt, _build, config, card: str) -> dict:
         for j0 in starts:
             plain_radial_gram_tiled(xl[j0:], xl[j0:j0 + COL_B], ls, SIGMA, profile, diag_l[j0:j0 + COL_B])
 
+    def library_group():  # torch.cdist + apply_profile a block: the two-call yardstick
+        for j0 in starts:
+            block = apply_profile(profile, torch.cdist(xl[j0:], xl[j0:j0 + COL_B],
+                                                       compute_mode="use_mm_for_euclid_dist") ** 2, ls, SIGMA)
+            block[:COL_B].diagonal().add_(diag_l[j0:j0 + COL_B])
+
     # the group's bound: x[j0:] and the diagonal read, each (N_LAZY - j0, b) block written; the contraction
     # and the profile of every block
     by_bytes = by_ops = 0.0
@@ -3445,11 +3476,13 @@ def check_highd(torch, np, pt, _build, config, card: str) -> dict:
         by_ops += 2 * HD_D * rows * cols / TF32_FLOP_PER_S + 7 * rows * cols / FP32_FLOP_PER_S
     r = {"max_abs_err": cols_err, "ms": cuda_ms(torch, group, batch=2),
          "plain_ms": cuda_ms(torch, plain_group, reps=1, batch=1), "bound_ms": 1e3 * max(by_bytes, by_ops),
-         "bound_by": "bytes" if by_bytes >= by_ops else "operations", "lazy_s": lazy_s}
+         "bound_by": "bytes" if by_bytes >= by_ops else "operations", "lazy_s": lazy_s,
+         "library_cdist_mm_ms": cuda_ms(torch, library_group, reps=3, batch=1)}
+    tile_rate(r, sum(rg._sym_tiles(N_LAZY, j0, COL_B) for j0 in starts))
     results["radial_gram_cols_highd"] = r
     print(f"[{card}] radial_gram_cols_highd, the {len(starts)} column launches of one lazy NLML N={N_LAZY} D={HD_D} as "
           f"one group: kernel {r['ms']:.4f} ms, tiled plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-          f"({r['bound_ms'] / r['ms']:.1%} of it)")
+          f"({r['bound_ms'] / r['ms']:.1%} of it); cdist with mm + profile a block {r['library_cdist_mm_ms']:.4f} ms")
 
     check_gates(f"phase (i) against f64 on the card", errors, HD_TOLS)
     results["radial_gram_highd"]["sweep"] = highd_sweep(torch, np, _build, card)
@@ -3501,7 +3534,7 @@ def main() -> int:
         if name == "panel_cholinv":
             print(f"  {ptxas_kernel(log, 'panel_cholinv_tasks')}")
         if name == "radial_gram":  # the high-D branch (one profile's instance each)
-            for kernel in ("highd_cross_kernel", "highd_sym_kernel", "highd_exact_cross_kernel", "highd_exact_sym_kernel"):
+            for kernel in ("highd_sums_kernel", "highd_tile_kernel", "highd_exact_kernel"):
                 print(f"  {ptxas_kernel(log, kernel)}")
     print(f"kernel build total: {time.perf_counter() - t0:.1f} s")
 
@@ -3885,8 +3918,8 @@ def main() -> int:
             "library_ms": None,
             "value_grad_launches": highd["value_grad_launches"][name],
         }
-        entry.update({k: v for k, v in r.items() if k.startswith("library_") or k in ("refined_share", "lazy_s",
-                                                                                        "sweep")})
+        entry.update({k: v for k, v in r.items() if k.startswith("library_") or k in (
+            "refined_share", "lazy_s", "sweep", "tiles", "ns_per_tile", "sha256")})
         entry.update({f"{phase}_launches": counts[name] for phase, counts in phase_counts.items()})
         if name == "radial_gram_highd":
             entry.update(highd_d16)

@@ -180,9 +180,14 @@ def _line(n, d, seed, offset=1000.0):
 HIGHD_ATOL = 1e-5
 
 
-@pytest.mark.parametrize("shape", [(300, 141), (130, 258), (333, 4099), (200, 256), (5, 3)])
+# (n, m): ragged and whole 128-tiles, rows that are not 16-byte aligned
+# (m % 4 != 0, so the kernel stores without its tensor map), fewer lower
+# tiles than the card's resident tile blocks (n = 128, 1000) and more
+# (n = 8193: 2145 lower tiles); D across the 32-feature chunk boundary.
+@pytest.mark.parametrize("shape", [(300, 141), (130, 258), (333, 4099), (200, 256), (5, 3), (128, 129),
+                                   (1000, 128), (8193, 300)])
 @pytest.mark.parametrize("profile", PROFILES)
-@pytest.mark.parametrize("d", [8, 9, 33, 64])
+@pytest.mark.parametrize("d", [8, 9, 31, 32, 33, 64, 100])
 def test_highd_gram_matches_tiled(cuda, profile, d, shape):
     """The cross form and K(X, X) + diag at D >= 8 (f32) launch the
     tensor-core branch (counted apart) and match plain_radial_gram_tiled
@@ -266,12 +271,13 @@ def _elementwise_f32(X, Y, ls, sigma, profile):
     return out
 
 
+@pytest.mark.parametrize("d", [9, 32, 100])
 @pytest.mark.parametrize("profile", PROFILES)
-def test_highd_refined_tiles_hold_the_elementwise_bits(cuda, profile):
+def test_highd_refined_tiles_hold_the_elementwise_bits(cuda, profile, d):
     """A refined tile of the high-D branch holds the elementwise loop's
     bits (the same arithmetic in the same order), in the cross form and in
     K(X, X); the other tiles are within HIGHD_ATOL of it."""
-    X, Y = _line(700, 32, seed=3), _line(300, 32, seed=4)
+    X, Y = _line(700, d, seed=3), _line(300, d, seed=4)
     for P, Q in ((X, Y), (X, X)):
         got = radial_gram(P, Q, 2.0, 1.5, profile)
         _, refined = tiled_squared_distances(P, Q, 2.0, profile)
@@ -282,25 +288,27 @@ def test_highd_refined_tiles_hold_the_elementwise_bits(cuda, profile):
         assert (got - loop).abs().max() <= HIGHD_ATOL * 1.5**2
 
 
-@pytest.mark.parametrize("d", [9, 32])
-def test_highd_column_blocks_equal_the_training_covariance(cuda, d):
+@pytest.mark.parametrize("b", [512, 1024])
+@pytest.mark.parametrize("d", [9, 32, 100])
+def test_highd_column_blocks_equal_the_training_covariance(cuda, d, b):
     """The lazy loop's column blocks at D >= 8 follow the global 128-grid:
     each equals those entries of the materialized training covariance bit
-    for bit, at j0 = 0, 1024, the last (ragged) block and an unaligned
-    one."""
+    for bit, at every j0 of a lazy loop of width b (the last block
+    ragged), and at blocks that start off the grid."""
     n = 2600
     x = _line(n, d, seed=d)
     diag = (0.01 + torch.rand(n, generator=torch.Generator().manual_seed(d))).cuda()
     K = radial_gram(x, x, 2.0, 1.5, "matern_52", diag_add=diag)
     _build.reset_launch_counts()
-    for j0, b in ((0, 1024), (1024, 1024), (2048, 552), (100, 129)):
-        col = radial_gram_cols(x, j0, b, 2.0, 1.5, "matern_52", diag)
-        assert col.shape == (n - j0, b)
-        assert torch.equal(col, K[j0:, j0:j0 + b])
-    assert _build.LAUNCHES["radial_gram_cols_highd"] == 4 and _build.LAUNCHES["radial_gram_cols"] == 0
+    blocks = [(j0, min(b, n - j0)) for j0 in range(0, n, b)] + [(100, 129), (1, 1)]
+    for j0, width in blocks:
+        col = radial_gram_cols(x, j0, width, 2.0, 1.5, "matern_52", diag)
+        assert col.shape == (n - j0, width)
+        assert torch.equal(col, K[j0:, j0:j0 + width])
+    assert _build.LAUNCHES["radial_gram_cols_highd"] == len(blocks) and _build.LAUNCHES["radial_gram_cols"] == 0
 
 
-@pytest.mark.parametrize("d", [8, 33])
+@pytest.mark.parametrize("d", [8, 32, 33, 100])
 def test_highd_batched_slices_equal_the_unbatched_kernel(cuda, d):
     """The walker-batched training covariance at D >= 8: one launch, each
     slice the unbatched high-D kernel's output bit for bit (the refinement
@@ -345,7 +353,7 @@ def test_highd_backward_launches_the_squared_distance_mode(cuda):
     assert (g - g_closed).abs().max() <= 1e-4 * g_closed.abs().max()
 
 
-@pytest.mark.parametrize("d", [9, 32])
+@pytest.mark.parametrize("d", [9, 32, 100])
 def test_highd_squared_distance_blocks_match_tiled(cuda, d):
     """The backward's squared-distance launches (profile id 4) against
     tiled_squared_distances: the column form at j0 = 0, 1024 and the
@@ -386,6 +394,23 @@ def test_highd_squared_distance_blocks_match_tiled(cuda, d):
     finally:
         rg._D2_BLOCK_ELEMENTS = kept
     assert (blocked - whole).abs().max() <= 1e-5 * whole.abs().max()
+
+
+@pytest.mark.parametrize("d", [32, 33])
+def test_highd_cross_form_on_an_unaligned_view(cuda, d):
+    """The cross form on views one row into their tensors (Y[1:], whose
+    rows start 16-byte aligned only when 4 | D): the kernel reads them in
+    place, equal bit for bit to the same gram of contiguous copies, and
+    within HIGHD_ATOL of the tiled version."""
+    A, B = _line(901, d, seed=d), _line(300, d, seed=d + 1)
+    X, Y = A[1:], B[1:]
+    assert X.is_contiguous() and (X.data_ptr() % 16 == 0) == (d % 4 == 0)
+    _build.reset_launch_counts()
+    got = radial_gram(X, Y, 2.0, 1.5, "squared_exponential")
+    assert _build.LAUNCHES["radial_gram_highd"] == 1
+    assert torch.equal(got, radial_gram(X.clone(), Y.clone(), 2.0, 1.5, "squared_exponential"))
+    tiled = plain_radial_gram_tiled(X, Y, 2.0, 1.5, "squared_exponential")
+    assert (got - tiled).abs().max() <= HIGHD_ATOL * 1.5**2
 
 
 def test_highd_tagged_gram_is_bitwise_symmetric(cuda):

@@ -153,6 +153,104 @@ def test_tiled_refined_tiles_equal_the_exact_closed_form(profile):
         assert (got - exact)[~inside].abs().max() <= TILED_ATOL
 
 
+def _kernel_order_sums(A, tile=128):
+    """The high-D pre-pass's tile sums written out one float32 addition at
+    a time: warp w adds rows w, w + 8, .. of the tile (the last tile's rows
+    past the end repeat the last row), then the eight warps' sums in turn."""
+    n, d = A.shape
+    sums = []
+    for t0 in range(0, n, tile):
+        warp = np.zeros((8, d), np.float32)
+        for w in range(8):
+            for q in range(tile // 8):
+                warp[w] = warp[w] + A[min(t0 + w + 8 * q, n - 1)]
+        total = np.zeros(d, np.float32)
+        for w in range(8):
+            total = total + warp[w]
+        sums.append(total)
+    return np.stack(sums)
+
+
+@pytest.mark.parametrize("n, d", [(1, 8), (127, 33), (128, 32), (300, 8), (300, 32)])
+def test_tile_feature_sums_follow_the_kernel_order(n, d):
+    """tile_feature_sums, the centres' plain version (the tiled version
+    above centres with it, and matches the Pallas kernel at D = 8..32),
+    equals the pre-pass's order bit for bit and 128 times the tiles' f64
+    means within f32 rounding."""
+    A = line_data(n, d, seed=n + d)
+    got = rg.tile_feature_sums(torch.as_tensor(A)).numpy()
+    np.testing.assert_array_equal(got, _kernel_order_sums(A))
+    padded = np.concatenate([A, np.repeat(A[-1:], -n % 128, axis=0)]).astype(np.float64)
+    np.testing.assert_allclose(got, padded.reshape(-1, 128, d).sum(axis=1), rtol=1e-5)
+
+
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 1000])
+def test_symmetric_schedule_visits_each_lower_tile_once(n):
+    """The symmetric launch's entries (_lower_tiles; the kernels decode an
+    entry as _lower_tile does) are the lower tiles (I >= J) of the global
+    128-grid that hold an entry of rows [j0, n) x columns [j0, j0 + b), or
+    whose mirror does, each once, column tile by column tile, and
+    _sym_tiles counts them; a column block stores a mirror (J, I) exactly
+    when it holds entries of the block (_mirror_meets).  Brute force by
+    tile pairs, for j0 on and off the 128-grid and b = 1, 128, 1024."""
+    nt = -(-n // 128)
+    for j0 in sorted({0, 1, 100, 128, 129, n // 2, n - 1} - set(range(n, 2000))):
+        for b in sorted({min(b, n - j0) for b in (1, 128, 1024)}):
+            j1 = j0 + b
+            needed, mirrors = set(), set()
+            for ti in range(nt):
+                for tj in range(nt):
+                    rows = max(ti * 128, j0) < min(ti * 128 + 128, n)
+                    cols = max(tj * 128, j0) < min(tj * 128 + 128, j1)
+                    if rows and cols:
+                        needed.add((max(ti, tj), min(ti, tj)))
+                        if ti < tj:
+                            mirrors.add((tj, ti))
+            tiles = rg._lower_tiles(n, j0, b)
+            assert len(tiles) == len(set(tiles)) == rg._sym_tiles(n, j0, b)
+            assert set(tiles) == needed
+            assert tiles == sorted(tiles, key=lambda t: (t[1], t[0]))
+            a = nt - j0 // 128
+            assert [rg._lower_tile(k, a) for k in range(len(tiles))] == [(J - j0 // 128, I - J) for I, J in tiles]
+            assert {(I, J) for I, J in tiles if I != J and rg._mirror_meets(I, j0, b)} == mirrors
+
+
+def test_work_words_hold_the_list_and_the_sums():
+    """One launch's device scratch (_work_words, the C code's layout): two
+    counters, a list word for every tile that may be near (each tile of
+    each walker), then, in the cross form, the f32 sums of x's and y's row
+    tiles; the symmetric forms keep theirs in _tile_sums's buffer, one row
+    for each of x's row tiles (the schedule visits those from j0's)."""
+    assert rg._cross_work_words(300, 141, 33) == 2 + 3 * 2 + -(-(3 + 2) * 33 // 2)
+    for n, d, j0, b, w in ((1000, 32, 0, 1000, 1), (1000, 33, 200, 129, 1), (517, 9, 0, 517, 3), (129, 8, 128, 1, 1)):
+        tiles = rg._lower_tiles(n, j0, b)
+        visited = {t for pair in tiles for t in pair}
+        assert visited == set(range(j0 // 128, -(-n // 128)))
+        assert rg._sym_work_words(n, j0, b, w) == 2 + w * len(tiles)
+        sums, ready = rg._tile_sums(torch.zeros((n, d)), stream=0)
+        assert sums.shape == (-(-n // 128), d) and not ready
+
+
+def test_tile_sums_are_kept_for_one_input_as_it_is():
+    """_tile_sums hands a later launch on the same tensor the buffer an
+    earlier launch filled (ready), and a fresh one (not ready) after an
+    in-place change, on another stream, or for another tensor; an entry
+    leaves the cache with its tensor."""
+    x = torch.as_tensor(line_data(300, 32, seed=0))
+    sums, ready = rg._tile_sums(x, stream=7)
+    assert not ready
+    again, ready = rg._tile_sums(x, stream=7)
+    assert ready and again is sums
+    assert not rg._tile_sums(x, stream=8)[1]
+    assert not rg._tile_sums(x.clone(), stream=8)[1]
+    x.mul_(1.0)
+    assert not rg._tile_sums(x, stream=8)[1]
+    assert rg._tile_sums(x, stream=8)[1]
+    key = id(x)
+    del x, sums, again
+    assert key not in rg._TILE_SUMS
+
+
 def _cpu_launch(launches):
     """The kernel's launch on CPU tensors, by the tiled plain version: what
     the CUDA launch computes, for driving the autograd Function here."""
