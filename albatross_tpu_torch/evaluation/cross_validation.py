@@ -18,6 +18,7 @@ import torch
 from ..core.dataset import RegressionDataset
 from ..core.distributions import JointDistribution, MarginalDistribution
 from ..indexing.grouping import Grouped, group_by
+from ..utils.profiling import named_scope
 from .cross_validation_utils import BatchedGrouped, batched_cross_validated_scores, cross_validated_scores
 from .folds import folds_from_group_indexer
 
@@ -89,6 +90,7 @@ class CrossValidation:
     def __init__(self, model):
         self.model = model
 
+    @named_scope("albatross.cv.folds")
     def _indexers(self, dataset, grouper) -> Grouped:
         if isinstance(grouper, Grouped):
             return grouper
@@ -102,8 +104,9 @@ class CrossValidation:
         indexers = self._indexers(dataset, grouper)
         predictions = CVPrediction(self.model, dataset, indexers).get(
             getattr(metric, "required_predict_type", None))
-        if isinstance(predictions, BatchedGrouped):
-            out = batched_cross_validated_scores(metric, dataset, indexers, predictions)
-            if out is not None:
-                return out
-        return cross_validated_scores(metric, folds_from_group_indexer(dataset, indexers), predictions)
+        with named_scope("albatross.cv.scores"):
+            if isinstance(predictions, BatchedGrouped):
+                out = batched_cross_validated_scores(metric, dataset, indexers, predictions)
+                if out is not None:
+                    return out
+            return cross_validated_scores(metric, folds_from_group_indexer(dataset, indexers), predictions)

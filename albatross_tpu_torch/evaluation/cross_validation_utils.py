@@ -25,6 +25,7 @@ from ..core.distributions import JointDistribution, MarginalDistribution
 from ..indexing.grouping import Grouped
 from ..ops.blocked_cholesky import cholesky
 from ..ops.linalg import CholeskyFactor
+from ..utils.profiling import named_scope
 
 
 class BatchedGrouped(Grouped):
@@ -69,6 +70,7 @@ class BatchedGrouped(Grouped):
         return f"BatchedGrouped(n_groups={len(self._keys_list)})"
 
 
+@named_scope("albatross.cv.folds")
 def _index_matrix(indexers: Grouped, device) -> torch.Tensor:
     """The (G, b) index matrix of groups of one size, on ``device``."""
     return torch.as_tensor(np.stack(indexers.values()), device=device)
@@ -87,6 +89,7 @@ def leave_one_out_conditional(prior: JointDistribution, truth: MarginalDistribut
     return MarginalDistribution(loo_mean, loo_variance)
 
 
+@named_scope("albatross.cv.blocks")
 def _grouped_inverse_blocks(chol, indexers: Grouped):
     """((A^-1)_gg by key, or None; the stacked (G, b, b) blocks and the
     (G, b) index matrix when the groups have one size, else None, None)."""
@@ -106,6 +109,7 @@ def _grouped_inverse_blocks(chol, indexers: Grouped):
     return out, None, None
 
 
+@named_scope("albatross.cv.blocks")
 def held_out_predictions(
     train_covariance: CholeskyFactor,
     target_mean: torch.Tensor,

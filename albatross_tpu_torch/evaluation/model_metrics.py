@@ -13,6 +13,7 @@ import torch
 from ..core.dataset import RegressionDataset
 from ..core.distributions import JointDistribution
 from ..indexing.grouping import LeaveOneOutGrouper
+from ..utils.profiling import named_scope
 from .metrics import NegativeLogLikelihood, RootMeanSquareError
 
 
@@ -34,6 +35,7 @@ class LeaveOneOutLikelihood(ModelMetric):
     def __init__(self, predict_type=JointDistribution):
         self.nll = NegativeLogLikelihood(predict_type)
 
+    @named_scope("albatross.cv.loo")
     def __call__(self, dataset, model):
         scores = model.cross_validate().scores(self.nll, dataset, LeaveOneOutGrouper())
         return _minus_prior(torch.sum(scores), model)

@@ -53,6 +53,7 @@ from ..ops.radial_gram import (
     match_fused_training_cov,
     radial_gram_cols,
 )
+from ..utils.profiling import named_scope
 from .base import FitModel, ModelBase
 
 LOG_2PI = math.log(2.0 * math.pi)
@@ -200,10 +201,12 @@ class GaussianProcess(ModelBase):
     def _cross(self, fit: GPFit, features):
         return self.covariance_function.matrix_or_none(fit.train_features, features)
 
+    @named_scope("albatross.gp.predict")
     def _predict_mean(self, features, fit: GPFit):
         pred = gp_mean_prediction(self._cross(fit, features), fit.information)
         return self.mean_function.add_to(features, pred)
 
+    @named_scope("albatross.gp.predict")
     def _predict_marginal(self, features, fit: GPFit) -> MarginalDistribution:
         cross = self._cross(fit, features)
         prior_variance = self.covariance_function.diag(features)
@@ -214,6 +217,7 @@ class GaussianProcess(ModelBase):
             self.mean_function.add_to(features, pred.mean), pred.variance
         )
 
+    @named_scope("albatross.gp.predict")
     def _predict_joint(self, features, fit: GPFit) -> JointDistribution:
         cross = self._cross(fit, features)
         prior_cov = self.covariance_function(features)
@@ -285,6 +289,7 @@ class GaussianProcess(ModelBase):
         x2, ls, sigma, diag_add, profile = pieces
         return _make_gram_col_fn(x2, ls, sigma, diag_add, profile)
 
+    @named_scope("albatross.gp.log_likelihood")
     def log_likelihood(self, dataset: RegressionDataset) -> torch.Tensor:
         """Log marginal likelihood plus the parameters' prior log-pdfs.
 

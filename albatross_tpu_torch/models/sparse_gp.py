@@ -48,6 +48,7 @@ from ..ops.block import BlockDiagonalCholesky, DiagonalCholesky, pad_blocks
 from ..ops.blocked_cholesky import cholesky
 from ..ops.compensated import accurate_sum_of_logs
 from ..ops.linalg import CholeskyFactor
+from ..utils.profiling import named_scope
 from .base import FitModel, ModelBase
 
 DEFAULT_NUGGET = 1e-8
@@ -110,6 +111,7 @@ def _numerical_rank(R: torch.Tensor, rows: int) -> torch.Tensor:
     return torch.sum(diag > tol)
 
 
+@named_scope("albatross.sparse.qr")
 def _tall_qr(B: torch.Tensor, mode: str):
     """``torch.linalg.qr`` of tall B, run in f64 when B is f32; Q stays in
     f64, R comes back in B's dtype.  cuSOLVER's f32 QR loses accuracy on
@@ -247,6 +249,7 @@ class SparseGaussianProcessRegression(ModelBase):
         K_uu = K_uu + self.inducing_nugget.value * torch.eye(K_uu.shape[0], dtype=K_uu.dtype, device=K_uu.device)
         return CholeskyFactor.factorize(K_uu)
 
+    @named_scope("albatross.sparse.components")
     def _compute_internal_components(self, inducing_features, features, targets: MarginalDistribution):
         """(A's factorization, K_uu's, K_fu, y - m(X)), rows in group
         order."""
@@ -305,6 +308,7 @@ class SparseGaussianProcessRegression(ModelBase):
         covariance = self.covariance_function(features) - Q_sqrt.T @ Q_sqrt + S_sqrt.T @ S_sqrt
         return JointDistribution(mean, covariance)
 
+    @named_scope("albatross.sparse.log_likelihood")
     def log_likelihood(self, dataset: RegressionDataset) -> torch.Tensor:
         """Log marginal likelihood by the determinant lemma, plus the
         parameters' prior log-pdfs.  Only R of the QR is used: Q is formed

@@ -24,6 +24,7 @@ from typing import Any, List, Sequence
 import numpy as np
 import torch
 
+from ..utils.profiling import named_scope
 from .blocked_cholesky import cholesky
 from .compensated import accurate_sum_of_logs
 
@@ -133,6 +134,7 @@ class BlockDiagonalCholesky:
     def rows(self) -> int:
         return sum(self.sizes)
 
+    @named_scope("albatross.solve")
     def _batched_solve(self, rhs: torch.Tensor, transpose: bool) -> torch.Tensor:
         rhs2 = rhs if rhs.ndim > 1 else rhs[:, None]
         chunks = self._layout.split_pad(rhs2)
@@ -203,6 +205,7 @@ class DiagonalCholesky:
     def rows(self) -> int:
         return self.sqrt_diag.shape[0]
 
+    @named_scope("albatross.solve")
     def _div(self, rhs):
         return rhs / (self.sqrt_diag[:, None] if rhs.ndim > 1 else self.sqrt_diag)
 
@@ -233,6 +236,7 @@ class BlockSymmetric:
     def rows(self) -> int:
         return self.Ai_B.shape[0] + self.Ai_B.shape[1]
 
+    @named_scope("albatross.solve")
     def solve(self, rhs):
         rhs2d = rhs if rhs.ndim > 1 else rhs[:, None]
         n_a = self.Ai_B.shape[0]

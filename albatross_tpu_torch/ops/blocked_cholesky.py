@@ -42,6 +42,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import named_scope
+
 DEFAULT_BLOCK = 1024
 # sub-block of the GEMM-composed panel inverse (blocked_tri_inverse)
 DEFAULT_PANEL_SUB = 256
@@ -128,6 +130,7 @@ def blocked_tri_inverse(L: torch.Tensor, sub: int = DEFAULT_PANEL_SUB) -> torch.
     return W
 
 
+@named_scope("albatross.cholesky.panel")
 def _panel_chol_inverse(Akk: torch.Tensor, sub: int = DEFAULT_PANEL_SUB):
     """(L, L^-1) of a diagonal panel through the panel Function
     (ops/panel_cholinv.py): its forward is the CUDA panel kernel for CUDA
@@ -147,6 +150,7 @@ def _panel_chol_inverse(Akk: torch.Tensor, sub: int = DEFAULT_PANEL_SUB):
     return U.mT, Wu.mT
 
 
+@named_scope("albatross.cholesky")
 def blocked_cholesky(K: torch.Tensor, block_size: int | None = None, use_inverse: bool = True, rhs=None,
                      panel_sub: int | str | None = "auto"):
     """Lower Cholesky factor (and L^-1 rhs when ``rhs`` is given), in the
@@ -170,6 +174,7 @@ def blocked_cholesky(K: torch.Tensor, block_size: int | None = None, use_inverse
     return L, torch.linalg.solve_triangular(L, rhs[:, None], upper=False)[:, 0]
 
 
+@named_scope("albatross.cholesky")
 def blocked_cholesky_cols(
     K: torch.Tensor,
     block_size: int | None = None,
@@ -213,6 +218,7 @@ def blocked_cholesky_cols(
     return _cols_core(cols, n, b, rhs, panel_sub=panel_sub, assemble=assemble)
 
 
+@named_scope("albatross.cholesky")
 def blocked_cholesky_cols_fused(
     col_fn,
     n: int,
@@ -298,6 +304,7 @@ class _ColumnPanels(torch.autograd.Function):
         )
 
     @staticmethod
+    @named_scope("albatross.cholesky")
     def backward(ctx, *grads):
         n, b = ctx.n, ctx.b
         gK = next(g for g in grads if g is not None).new_zeros((n, n))
@@ -322,6 +329,7 @@ class _TrailingUpdate(torch.autograd.Function):
         return cols
 
     @staticmethod
+    @named_scope("albatross.cholesky.trailing")
     def backward(ctx, *grads):
         (B,) = ctx.saved_tensors
         b = B.shape[1]
@@ -334,6 +342,7 @@ class _TrailingUpdate(torch.autograd.Function):
         return (gB, *grads)
 
 
+@named_scope("albatross.cholesky.trailing")
 def _trailing_update(B, cols) -> None:
     """cols[i] -= B[i b:] B[i b:(i + 1) b]^T in place, inside the GEMM;
     over leading batch dimensions too (``baddbmm_``)."""
@@ -368,16 +377,18 @@ def _cols_core(cols, n: int, b: int, rhs, *, panel_sub: int, assemble: bool):
     for k in range(G):
         col = cols[k]  # (..., n - k0, b)
         Lkk, W = _panel_chol_inverse(col[..., :b, :], panel_sub)
-        below = col[..., b:, :] @ W.mT  # (..., n - k0 - b, b)
+        with named_scope("albatross.cholesky.panel_solve"):
+            below = col[..., b:, :] @ W.mT  # (..., n - k0 - b, b)
         if assemble:
             cols[k] = torch.cat([Lkk, below], dim=-2)
         else:
             cols[k] = col = None
             diags.append(torch.diagonal(Lkk, dim1=-2, dim2=-1))
         if tail is not None:
-            zk = _matvec(W, tail[..., :b])
-            white.append(zk)
-            tail = tail[..., b:] - _matvec(below, zk)
+            with named_scope("albatross.cholesky.whiten"):
+                zk = _matvec(W, tail[..., :b])
+                white.append(zk)
+                tail = tail[..., b:] - _matvec(below, zk)
         if k + 1 < G:
             if below.requires_grad:
                 cols[k + 1:] = _TrailingUpdate.apply(below, *cols[k + 1:])

@@ -22,6 +22,7 @@ from typing import Sequence
 
 import torch
 
+from ..utils.profiling import named_scope
 from .blocked_cholesky import blocked_cholesky_cols, blocked_cholesky_cols_fused, cholesky
 from .compensated import accurate_sum_of_logs, blocked_cholesky_dw
 from .nlml import blocked_lauum, tri_inverse_full
@@ -67,10 +68,11 @@ class CholeskyFactor:
             if config.cholesky_precision() == "double_word":
                 return blocked_cholesky_dw(K, rhs=rhs)
             return blocked_cholesky_cols(K, rhs=rhs)
-        L = cholesky(K)
-        if rhs is None:
-            return L
-        return L, _lower_solve(L, rhs)
+        with named_scope("albatross.cholesky"):
+            L = cholesky(K)
+            if rhs is None:
+                return L
+            return L, _lower_solve(L, rhs)
 
     @classmethod
     def factorize(cls, K, jitter: float = 0.0, assume_symmetric: bool = False):
@@ -115,8 +117,10 @@ class CholeskyFactor:
             factor = blocked_cholesky_dw if double_word else blocked_cholesky_cols
             diag, white = factor(K, rhs=rhs, assemble=False)
             return _sum_of_logs(diag), white
-        L = cholesky(K)
-        return _sum_of_logs(torch.diagonal(L)), _lower_solve(L, rhs)
+        with named_scope("albatross.cholesky"):
+            L = cholesky(K)
+            white = _lower_solve(L, rhs)
+        return _sum_of_logs(torch.diagonal(L)), white
 
     @staticmethod
     def safe_jitter(K, initial_jitter: float = 0.0, max_tries: int = 6,
@@ -164,6 +168,7 @@ class CholeskyFactor:
     def dtype(self):
         return self.L.dtype
 
+    @named_scope("albatross.solve")
     def solve(self, rhs: torch.Tensor) -> torch.Tensor:
         """A^-1 rhs via two triangular solves."""
         rhs2d = rhs if rhs.ndim > 1 else rhs[:, None]
@@ -171,10 +176,12 @@ class CholeskyFactor:
         x = torch.linalg.solve_triangular(self.L.T, y, upper=True)
         return x if rhs.ndim > 1 else x[:, 0]
 
+    @named_scope("albatross.solve")
     def sqrt_solve(self, rhs: torch.Tensor) -> torch.Tensor:
         """L^-1 rhs -- the whitening transform."""
         return _lower_solve(self.L, rhs)
 
+    @named_scope("albatross.solve")
     def sqrt_transpose_solve(self, rhs: torch.Tensor) -> torch.Tensor:
         """L^-T rhs."""
         rhs2d = rhs if rhs.ndim > 1 else rhs[:, None]
@@ -196,6 +203,7 @@ class CholeskyFactor:
         d = torch.diagonal(self.L)
         return torch.all(torch.isfinite(d)) & torch.all(d > 0)
 
+    @named_scope("albatross.cholesky.inverse")
     def _tri_inverse(self) -> torch.Tensor:
         """L^-1, GEMM-composed above n = 2048 (ops/nlml.py)."""
         return tri_inverse_full(self.L)
@@ -255,6 +263,7 @@ class DirectInverse:
 
     inverse_matrix: torch.Tensor
 
+    @named_scope("albatross.solve")
     def solve(self, rhs: torch.Tensor) -> torch.Tensor:
         return self.inverse_matrix @ rhs
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import named_scope
 from .blocked_cholesky import _tri_solve_identity, blocked_tri_inverse
 
 _BLOCK_CANDIDATES = (2560, 2048, 1536, 1280, 1024, 512, 256, 128)
@@ -37,6 +38,7 @@ def _pad_identity_tail(T: torch.Tensor, npad: int) -> torch.Tensor:
     return torch.block_diag(T, torch.eye(npad - n, dtype=T.dtype, device=T.device))
 
 
+@named_scope("albatross.cholesky.inverse")
 def tri_inverse_full(L: torch.Tensor) -> torch.Tensor:
     """W = L^-1 for a full-size lower-triangular factor, GEMM-rich: coarse
     row blocks whose diagonal inverses are themselves GEMM-composed

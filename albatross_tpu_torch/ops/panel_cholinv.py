@@ -44,6 +44,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..utils.profiling import named_scope
 
 _T = 128
 
@@ -136,6 +137,7 @@ class _PanelCholInv(torch.autograd.Function):
         return U, Wu
 
     @staticmethod
+    @named_scope("albatross.cholesky.panel")
     def backward(ctx, grad_U, grad_Wu):
         _build.count_backward("panel_cholinv")
         U, Wu = ctx.saved_tensors

@@ -65,6 +65,7 @@ import torch
 from .. import _build
 from ..core.parameters import host_float
 from ..kernels.distances import as_matrix
+from ..utils.profiling import named_scope
 
 PROFILES = ("squared_exponential", "exponential", "matern_32", "matern_52")
 _PROFILE_ID = {p: i for i, p in enumerate(PROFILES)}
@@ -462,6 +463,7 @@ class _RadialGramFunction(torch.autograd.Function):
         return _launch(X, Y, ls_value, sigma_value, diag, profile, counter, cols)
 
     @staticmethod
+    @named_scope("albatross.gram")
     def backward(ctx, grad_out):
         saved = ctx.saved_tensors
         needs = ctx.needs_input_grad[:5]
@@ -503,6 +505,7 @@ def _check_cuda_inputs(X, Y, diag):
             raise ValueError("radial_gram kernel needs a contiguous diag_add")
 
 
+@named_scope("albatross.gram")
 def _gram(X, Y, length_scale, sigma, profile, diag_add, counter, host_scalars=None, cols=None):
     if not (X.is_cuda or Y.is_cuda):
         return plain_radial_gram(X, Y, length_scale, sigma, profile, diag_add)
@@ -554,6 +557,7 @@ def _launch_diag_batched(X, length_scales, sigmas, diag, profile: str):
     return out
 
 
+@named_scope("albatross.gram")
 def radial_gram_diag_batched(x, length_scales, sigmas, diag, profile: str = "squared_exponential"):
     """(W, N, N) stack of training covariances over one (N,) or (N, D)
     input x: slice w is sigmas[w]^2 * profile(||x_i - x_j|| / length_scales[w])

@@ -10,7 +10,7 @@ from .graph import (
     minimum_spanning_forest,
     minimum_spanning_tree,
 )
-from .profiling import named_scope, trace, wall_timer
+from .profiling import named_scope, spans, trace, wall_timer
 from .random import (
     random_covariance_matrix,
     random_without_replacement,

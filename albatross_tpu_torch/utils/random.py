@@ -12,7 +12,6 @@ from __future__ import annotations
 import torch
 
 from ..core.distributions import JointDistribution
-from ..ops.linalg import CholeskyFactor
 
 
 def as_generator(key) -> torch.Generator:
@@ -47,6 +46,8 @@ def sample_mvn(key, distribution: JointDistribution, num_samples: int = 1, norma
     """Draws mean + L v through the Cholesky factor L of the covariance:
     (n,) for one sample, else (num_samples, n).  ``normals`` (n,
     num_samples) replaces the draw of v."""
+    from ..ops.linalg import CholeskyFactor  # ops imports utils.profiling: no import cycle
+
     chol = CholeskyFactor.factorize(distribution.covariance)
     mean = distribution.mean
     if normals is None:

@@ -1,0 +1,9 @@
+"""factor_ms.tune: device milliseconds a tuning step under the port span
+``albatross.cholesky`` and its children (panel, panel solve, trailing
+update, whitening), forward and backward (``gpbench/spans.py``)."""
+
+from gpbench import spans
+
+
+def read(ctx):
+    return spans.device_ms(spans.summary(ctx), "albatross.cholesky")
