@@ -30,7 +30,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-KERNELS = ("radial_gram", "panel_cholinv")
+KERNELS = ("radial_gram", "panel_cholinv", "trailing_update")
 
 # kernel wrapper name -> launches since the last reset; the gram kernel
 # counts its four launch forms apart: the cross covariance, the square
@@ -38,12 +38,14 @@ KERNELS = ("radial_gram", "panel_cholinv")
 # walker-batched stack of training covariances, and each again with
 # "_highd" in its tensor-core branch (f32, D >= 8), where the backward's
 # squared-distance launches count as "radial_gram_d2_highd"; the panel
-# kernel its single and its batched form
+# kernel its single and its batched form; the trailing-update kernel its
+# forward and its backward (one launch a panel each)
 LAUNCHES: dict[str, int] = {"radial_gram": 0, "radial_gram_diag": 0, "radial_gram_cols": 0,
                             "radial_gram_diag_batched": 0, "radial_gram_highd": 0,
                             "radial_gram_diag_highd": 0, "radial_gram_cols_highd": 0,
                             "radial_gram_diag_batched_highd": 0, "radial_gram_d2_highd": 0,
-                            "panel_cholinv": 0, "panel_cholinv_batched": 0}
+                            "panel_cholinv": 0, "panel_cholinv_batched": 0,
+                            "trailing_update": 0, "trailing_update_backward": 0}
 # kernel name -> calls of its autograd backward since the last reset
 BACKWARDS: dict[str, int] = {"panel_cholinv": 0}
 

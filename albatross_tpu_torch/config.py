@@ -3,8 +3,12 @@
 The JAX package runs every factorization GEMM at HIGHEST (f32-faithful)
 precision.  The faithful counterpart here is full-f32 matmuls: TF32 keeps
 about three decimal digits, which is what the JAX package's single-pass
-bf16 default cost it (NaN factorizations at large N).  TF32 is therefore
-off; enabling it is an explicit opt-in for a later change.
+bf16 default cost it (NaN factorizations at large N).  TF32 therefore
+stays off for every torch matmul.  The blocked Cholesky's trailing update
+runs on the tensor cores all the same, in its own kernel
+(ops/trailing_update.py): 3xTF32, three TF32 products of split operands
+summed in f32, which is f32-accurate; it has no switch of its own, and the
+compensated accuracy mode (NLML_COMPENSATED) keeps the f32 GEMMs.
 
 The TPU-only knobs of the JAX package are not ported:
 ``DW_DOT_ALGORITHM`` and ``CHOLESKY_TRAILING_BF16`` exist only because of
@@ -44,7 +48,9 @@ CHOLESKY_FUSED_MIN_N: int = 49152
 # reductions for the log-determinant and the quadratic term, which two
 # steps of iterative refinement with a double-word residual polish.  Read
 # by GaussianProcess.log_likelihood; it factorizes the assembled training
-# covariance.
+# covariance.  Its factorizations keep the f32 GEMMs of the trailing update
+# (ops/blocked_cholesky.py), which round both ways, instead of the 3xTF32
+# kernel's truncating tensor-core sums.
 NLML_COMPENSATED: bool = False
 
 # Factorization accuracy mode, read by CholeskyFactor._factor_core and

@@ -19,9 +19,14 @@ the hand-written panel kernel (ops/panel_cholinv.py), which launches or
 raises; a CUDA f64 panel takes torch.linalg.cholesky + blocked_tri_inverse,
 the JAX package's default panel path.  The TPU kernel is f32-only (it
 casts its input to f32) and the JAX package never sends an f64 panel to
-it, so neither does the port.  The panel solve and the trailing updates
-are plain large GEMMs (``torch.matmul``), as the JAX package leaves them
-to XLA.
+it, so neither does the port.  The panel solve is a plain large GEMM
+(``torch.matmul``), as the JAX package leaves it to XLA.  The trailing
+update, which the JAX package also leaves to XLA (at HIGHEST precision),
+is routed the same way: for a CUDA f32 matrix one launch a panel of the
+3xTF32 tensor-core kernel forward and one backward
+(ops/trailing_update.py), which launch or raise; f64, CPU tensors, the
+walker-batched stacks and the compensated accuracy mode
+(``config.NLML_COMPENSATED``) keep ``addmm_`` / ``baddbmm_``.
 
 ``blocked_cholesky_cols_fused`` runs the same loop over lazy column
 panels: ``col_fn(j0, b)`` builds each panel's active rows (the gram kernel
@@ -43,6 +48,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.profiling import named_scope
+from .trailing_update import trailing_update, trailing_update_backward
 
 DEFAULT_BLOCK = 1024
 # sub-block of the GEMM-composed panel inverse (blocked_tri_inverse)
@@ -314,12 +320,27 @@ class _ColumnPanels(torch.autograd.Function):
         return gK, None
 
 
+def _on_trailing_kernel(B) -> bool:
+    """Whether the trailing update of B runs on the kernel
+    (ops/trailing_update.py): a CUDA f32 matrix, outside the compensated
+    accuracy mode.  f64, CPU tensors and the walker-batched (W, R, b) stacks
+    take ``addmm_`` / ``baddbmm_``, and so does every factorization under
+    ``config.NLML_COMPENSATED``: the tensor cores' truncating sums leave the
+    kernel a one-sided error of about 1e-7 of a sum of squares, which the
+    mode's compensated NLML, built to read the factor more exactly than
+    plain f32 does, would carry whole."""
+    from .. import config
+
+    return B.ndim == 2 and B.is_cuda and B.dtype == torch.float32 and not config.NLML_COMPENSATED
+
+
 class _TrailingUpdate(torch.autograd.Function):
     """cols[j] -= B[r0:] B[r0:r0+b]^T in place for each later panel j (r0 =
     (j - k - 1) b), where B holds the rows of column panel k below its
-    diagonal block.  The backward accumulates B's gradient in one buffer,
-    inside the GEMMs; autograd of the sliced ``addmm_`` would allocate and
-    add a buffer of B's shape for each slice."""
+    diagonal block.  The backward accumulates B's gradient in one buffer:
+    on the kernel, one launch that writes each tile of it once; elsewhere
+    inside the GEMMs (autograd of the sliced ``addmm_`` would allocate and
+    add a buffer of B's shape for each slice)."""
 
     @staticmethod
     def forward(ctx, B, *cols):
@@ -332,6 +353,8 @@ class _TrailingUpdate(torch.autograd.Function):
     @named_scope("albatross.cholesky.trailing")
     def backward(ctx, *grads):
         (B,) = ctx.saved_tensors
+        if _on_trailing_kernel(B):
+            return (trailing_update_backward(B, grads), *grads)
         b = B.shape[1]
         gB = torch.zeros_like(B)
         for i, G in enumerate(grads):
@@ -344,8 +367,12 @@ class _TrailingUpdate(torch.autograd.Function):
 
 @named_scope("albatross.cholesky.trailing")
 def _trailing_update(B, cols) -> None:
-    """cols[i] -= B[i b:] B[i b:(i + 1) b]^T in place, inside the GEMM;
-    over leading batch dimensions too (``baddbmm_``)."""
+    """cols[i] -= B[i b:] B[i b:(i + 1) b]^T in place: one launch of the
+    kernel for a CUDA f32 matrix, else inside the GEMM (``addmm_``), over
+    leading batch dimensions too (``baddbmm_``)."""
+    if _on_trailing_kernel(B):
+        trailing_update(B, cols)
+        return
     b = B.shape[-1]
     for i, C in enumerate(cols):
         lhs, rhs = B[..., i * b:, :], B[..., i * b:(i + 1) * b, :].mT

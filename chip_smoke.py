@@ -5,7 +5,9 @@
 
 Builds the hand-written CUDA kernels from ``albatross_tpu_torch/csrc``,
 holds each against its plain PyTorch version on the card at the main
-path's shapes, then runs the main path through the public API at full
+path's shapes (the trailing-update kernel also against f64 and cuBLAS's
+``addmm_`` loop, at 27, 13 and 1 later column panels of 1024), then runs
+the main path through the public API at full
 size -- ``log_likelihood`` and ``fit -> predict -> marginal`` of
 SquaredExponential(0.5, 1.0) + measurement_only(IndependentNoise(0.3)),
 jitter 1e-4, on N = 28672 sorted 1-D f32 inputs on [0, 100] -- checks it
@@ -18,8 +20,9 @@ work, -log_likelihood and its gradient with respect to the tunable vector
 through ``set_tunable_params``: at N = 8192 it is held against an f64
 reference on the card that does not use the blocked loop (with a TF32
 control that must fail the same gate), its launches and panel backward
-calls are counted and it is timed; at N = 28672 it is timed with its peak
-memory; a 10-iteration L-BFGS run of ``get_tuner`` at N = 8192 must lower
+calls are counted and it is timed; at N = 28672 its trailing-update
+launches are counted (one a panel forward and backward) and it is timed
+with its peak memory; a 10-iteration L-BFGS run of ``get_tuner`` at N = 8192 must lower
 the objective.  The lazy-gram phases run the memory-lean NLML, where the
 gram kernel writes each column panel straight into the factorization's
 buffers: its column blocks against the plain version at three panels of
@@ -148,6 +151,10 @@ PANELS = 28        # N / 1024: the CUDA panel size at N = 28672
 N_F64 = 3072       # the f64 phase: three panels of 1024
 N_GRAD = 8192      # the value+grad phase (bench.py's value+grad size)
 PANELS_GRAD = 8    # N_GRAD / 1024
+TRAIL_B = 1024     # the trailing-update phase: panel width and later column panels a launch
+TRAIL_PANELS = (27, 13, 1)
+TRAIL_F64_TIMES = 4.0   # the kernel's error against f64 within this many times cuBLAS FP32's
+TRAIL_PLAIN_TOL = 1e-5  # kernel against its plain version, over the largest f64 entry
 REPS = 5
 GRAD_REPS = 10     # value+grad evaluations timed at N_GRAD (bench.py times 8)
 BIG_GRAD_REPS = 3  # value+grad evaluations timed at N
@@ -695,7 +702,9 @@ def check_value_grad(torch, np, pt, _build, config, card: str, args) -> dict:
     counts, backwards = dict(_build.LAUNCHES), dict(_build.BACKWARDS)
     print(f"value+grad N={N_GRAD} f32: launches {counts}, panel backward calls {backwards}")
     if (counts["radial_gram_diag"] != 1 or counts["panel_cholinv"] != PANELS_GRAD or counts["radial_gram"] != 0
-            or counts["radial_gram_cols"] != 0 or backwards["panel_cholinv"] != PANELS_GRAD):
+            or counts["radial_gram_cols"] != 0 or backwards["panel_cholinv"] != PANELS_GRAD
+            or counts["trailing_update"] != PANELS_GRAD - 1
+            or counts["trailing_update_backward"] != PANELS_GRAD - 1):
         fail(f"value+grad launch counts {counts}, backward calls {backwards}")
     if grad.shape != (3,) or not torch.isfinite(grad).all():
         fail(f"value+grad gradient {grad}")
@@ -739,7 +748,9 @@ def check_value_grad(torch, np, pt, _build, config, card: str, args) -> dict:
     print(f"[{card}] lazy NLML value+grad N={N_GRAD} f32: "
           f"{statistics.median(lazy_times) * 1e3:.2f} ms/eval (median of {GRAD_REPS}; all {lazy_times})")
     if (lazy_counts["radial_gram_cols"] != PANELS_GRAD or lazy_counts["radial_gram_diag"] != 0
-            or lazy_counts["panel_cholinv"] != PANELS_GRAD or lazy_backwards["panel_cholinv"] != PANELS_GRAD):
+            or lazy_counts["panel_cholinv"] != PANELS_GRAD or lazy_backwards["panel_cholinv"] != PANELS_GRAD
+            or lazy_counts["trailing_update"] != PANELS_GRAD - 1
+            or lazy_counts["trailing_update_backward"] != PANELS_GRAD - 1):
         fail(f"lazy value+grad launch counts {lazy_counts}, backward calls {lazy_backwards}")
     if not (lazy_errors[0] <= GRAD_VALUE_REL_TOL and lazy_errors[1] <= GRAD_REL_TOL):
         fail(f"lazy value+grad disagrees with the f64 reference: {lazy_errors}")
@@ -803,13 +814,20 @@ def check_value_grad(torch, np, pt, _build, config, card: str, args) -> dict:
     return {"launches": counts, "backwards": backwards}
 
 
-def time_value_grad_big(torch, model, data, card: str, args) -> None:
-    """value+grad at the main path's N: s/eval, TFLOP/s by bench.py's
+def time_value_grad_big(torch, _build, model, data, card: str, args) -> None:
+    """value+grad at the main path's N: the trailing-update kernel's launches
+    (one a panel forward and backward), s/eval, TFLOP/s by bench.py's
     3x-forward accounting, and the evaluation's peak device memory."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    value_grad(torch, model, data)  # warm-up, and the memory reading
+    _build.reset_launch_counts()
+    value_grad(torch, model, data)  # warm-up, the memory reading and the trailing kernel's engagement
     peak = torch.cuda.max_memory_allocated()
+    engaged = {k: _build.LAUNCHES[k] for k in ("trailing_update", "trailing_update_backward")}
+    print(f"value+grad N={N}: trailing-update launches {engaged} for the {PANELS - 1} panels with a trailing "
+          f"update, {sum(engaged.values()) / (2 * (PANELS - 1)):.0%} of them")
+    if engaged != {"trailing_update": PANELS - 1, "trailing_update_backward": PANELS - 1}:
+        fail(f"value+grad N={N} did not run every trailing update on the kernel: {engaged}")
     times = []
     for _ in range(BIG_GRAD_REPS):
         t = time.perf_counter()
@@ -2224,7 +2242,11 @@ def check_accuracy_modes(torch, np, pt, _build, config, card: str, data, ll_ref:
     finally:
         _set_modes(config, False, None)
     for name in modes:
-        if counts[name]["radial_gram_diag"] != 1 or counts[name]["panel_cholinv"] != PANELS:
+        # only the plain mode's trailing updates run on the 3xTF32 kernel:
+        # the compensated mode keeps the f32 GEMMs, the double-word loop its own
+        trailing = PANELS - 1 if name == "plain" else 0
+        if (counts[name]["radial_gram_diag"] != 1 or counts[name]["panel_cholinv"] != PANELS
+                or counts[name]["trailing_update"] != trailing):
             fail(f"accuracy mode {name}: launches {counts[name]}")
 
     # the factorization's own error, below the f32 NLML's last digit: the
@@ -3494,6 +3516,128 @@ def check_highd(torch, np, pt, _build, config, card: str) -> dict:
     return {"results": results, "launches": launches, "phase": phase, "value_grad_launches": grad_counts}
 
 
+def trailing_flops(panels: int, b: int) -> tuple[float, float]:
+    """(forward, backward) FLOP of one panel's trailing update at P = panels
+    later column panels of width b: the forward's P (P + 1) / 2 products of
+    (rows, b) by (b, b), the backward's twice that."""
+    forward = 2.0 * b**3 * panels * (panels + 1) / 2
+    return forward, 2 * forward
+
+
+def library_trailing(B, cols):
+    """The trailing update as cuBLAS ran it before the kernel (one addmm_ a
+    column panel): chip_smoke's yardstick, which the port never calls."""
+    b = B.shape[1]
+    for i, C in enumerate(cols):
+        C.addmm_(B[i * b:], B[i * b:(i + 1) * b].T, alpha=-1.0)
+
+
+def library_trailing_backward(torch, B, grads):
+    b = B.shape[1]
+    gB = torch.zeros_like(B)
+    for i, G in enumerate(grads):
+        gB[i * b:].addmm_(G, B[i * b:(i + 1) * b], alpha=-1.0)
+        gB[i * b:(i + 1) * b].addmm_(G.T, B[i * b:], alpha=-1.0)
+    return gB
+
+
+def check_trailing(torch, _build, card: str) -> dict:
+    """The trailing-update kernel (ops/trailing_update.py) at b = 1024 and
+    P = 27 / 13 / 1 later column panels (B of 27648 / 13312 / 1024 rows:
+    the main path's first, middle and last panels), forward and backward:
+    against f64 (the gate: within TRAIL_F64_TIMES of cuBLAS's FP32 error
+    on the same inputs) and against its plain version; one launch each;
+    bit-equal across two runs; CUDA-event times beside the bound (the
+    operations at 494.7 TFLOP/s and at 494.7 / 3, the 3xTF32 rate), the
+    plain version and cuBLAS's addmm_ loop (the library column)."""
+    from albatross_tpu_torch.ops.trailing_update import (
+        plain_trailing_update,
+        plain_trailing_update_backward,
+        trailing_update,
+        trailing_update_backward,
+    )
+
+    g = torch.Generator(device="cpu").manual_seed(SEED + 19)
+    b = TRAIL_B
+    rows = {}
+    for panels in TRAIL_PANELS:
+        R = panels * b
+        # B as the loop makes it, rows of a factor: entries ~ 1 / sqrt(b); C an SPD-like trailing block
+        B = (torch.randn((R, b), generator=g) / b**0.5).cuda()
+        cols0 = [(torch.randn((R - i * b, b), generator=g) * 0.1).cuda() for i in range(panels)]
+        grads = [torch.randn((R - i * b, b), generator=g).cuda() for i in range(panels)]
+        # f64 reference, and cuBLAS's f32 error on the same inputs
+        ref = [c.double() for c in cols0]
+        library_trailing(B.double(), ref)
+        lib = [c.clone() for c in cols0]
+        library_trailing(B, lib)
+        got = [c.clone() for c in cols0]
+        _build.reset_launch_counts()
+        trailing_update(B, got)
+        counts = dict(_build.LAUNCHES)
+        again = [c.clone() for c in cols0]
+        trailing_update(B, again)
+        plain = [c.clone() for c in cols0]
+        plain_trailing_update(B, plain)
+        scale = max(r.abs().max().item() for r in ref)
+        err = max((a.double() - r).abs().max().item() for a, r in zip(got, ref)) / scale
+        err_lib = max((a.double() - r).abs().max().item() for a, r in zip(lib, ref)) / scale
+        err_plain = max((a - p).abs().max().item() for a, p in zip(got, plain)) / scale
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
+        gref = library_trailing_backward(torch, B.double(), [G.double() for G in grads])
+        glib = library_trailing_backward(torch, B, grads)
+        _build.reset_launch_counts()
+        gB = trailing_update_backward(B, grads)
+        bcounts = dict(_build.LAUNCHES)
+        gB_again = trailing_update_backward(B, grads)
+        gplain = plain_trailing_update_backward(B, grads)
+        gscale = gref.abs().max().item()
+        berr = (gB.double() - gref).abs().max().item() / gscale
+        berr_lib = (glib.double() - gref).abs().max().item() / gscale
+        berr_plain = (gB - gplain).abs().max().item() / gscale
+        bsame = torch.equal(gB, gB_again)
+        print(f"trailing_update b={b} P={panels} (B {R} x {b}): forward rel err vs f64 {err:.3e} (cuBLAS FP32 "
+              f"{err_lib:.3e}), vs plain {err_plain:.3e}, bit-equal across runs {same}, launches "
+              f"{counts['trailing_update']}; backward rel err {berr:.3e} (cuBLAS FP32 {berr_lib:.3e}), vs plain "
+              f"{berr_plain:.3e}, bit-equal {bsame}, launches {bcounts['trailing_update_backward']}")
+        if counts["trailing_update"] != 1 or sum(counts.values()) != 1:
+            fail(f"trailing_update P={panels} launched {counts}")
+        if bcounts["trailing_update_backward"] != 1 or sum(bcounts.values()) != 1:
+            fail(f"trailing_update_backward P={panels} launched {bcounts}")
+        if not (same and bsame):
+            fail(f"trailing_update P={panels} is not bit-equal across two runs: forward {same}, backward {bsame}")
+        if not (err <= TRAIL_F64_TIMES * err_lib and berr <= TRAIL_F64_TIMES * berr_lib):
+            fail(f"trailing_update P={panels} is further from f64 than {TRAIL_F64_TIMES} times cuBLAS FP32: "
+                 f"forward {err} against {err_lib}, backward {berr} against {berr_lib}")
+        if not (err_plain <= TRAIL_PLAIN_TOL and berr_plain <= TRAIL_PLAIN_TOL):
+            fail(f"trailing_update P={panels} disagrees with its plain version: {err_plain}, {berr_plain}")
+        del ref, gref, lib, glib, again, gB_again, plain, gplain
+        work = [c.clone() for c in cols0]
+        f_flops, b_flops = trailing_flops(panels, b)
+        r = {
+            "ms": cuda_ms(torch, lambda: trailing_update(B, work)),
+            "library_ms": cuda_ms(torch, lambda: library_trailing(B, work)),
+            "plain_ms": cuda_ms(torch, lambda: plain_trailing_update(B, work), batch=2),
+            "backward_ms": cuda_ms(torch, lambda: trailing_update_backward(B, grads)),
+            "backward_library_ms": cuda_ms(torch, lambda: library_trailing_backward(torch, B, grads)),
+            "backward_plain_ms": cuda_ms(torch, lambda: plain_trailing_update_backward(B, grads), batch=2),
+            "bound_ms": f_flops / TF32_FLOP_PER_S * 1e3, "bound_3xtf32_ms": 3 * f_flops / TF32_FLOP_PER_S * 1e3,
+            "backward_bound_ms": b_flops / TF32_FLOP_PER_S * 1e3,
+            "backward_bound_3xtf32_ms": 3 * b_flops / TF32_FLOP_PER_S * 1e3,
+            "max_rel_err": max(err, berr), "cublas_fp32_rel_err": max(err_lib, berr_lib),
+        }
+        for way, fl in (("", f_flops), ("backward_", b_flops)):
+            print(f"[{card}] trailing_update {way or 'forward_'}P={panels}: {r[way + 'ms']:.4f} ms "
+                  f"({fl / r[way + 'ms'] / 1e9:.1f} TFLOP/s), bound {r[way + 'bound_ms']:.4f} ms at 494.7 TFLOP/s "
+                  f"({r[way + 'bound_ms'] / r[way + 'ms']:.1%}) and {r[way + 'bound_3xtf32_ms']:.4f} ms at the "
+                  f"3xTF32 rate ({r[way + 'bound_3xtf32_ms'] / r[way + 'ms']:.1%}); cuBLAS addmm_ "
+                  f"{r[way + 'library_ms']:.4f} ms ({fl / r[way + 'library_ms'] / 1e9:.1f} TFLOP/s); plain "
+                  f"{r[way + 'plain_ms']:.4f} ms")
+        rows[panels] = r
+        del B, cols0, grads, got, gB, work
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -3533,6 +3677,8 @@ def main() -> int:
         print(f"build {name}: {seconds:.1f} s; {ptxas_summary(log)}")
         if name == "panel_cholinv":
             print(f"  {ptxas_kernel(log, 'panel_cholinv_tasks')}")
+        if name == "trailing_update":
+            print(f"  {ptxas_kernel(log, 'trailing_kernel')}")
         if name == "radial_gram":  # the high-D branch (one profile's instance each)
             for kernel in ("highd_sums_kernel", "highd_tile_kernel", "highd_exact_kernel"):
                 print(f"  {ptxas_kernel(log, kernel)}")
@@ -3677,6 +3823,8 @@ def main() -> int:
         if what == "kernel" and not (eu <= PANEL_U_TOL and ew <= PANEL_WU_TOL):
             fail(f"panel kernel on the main path's first panel: U {eu}, Wu {ew}")
     print(f"panel b=1024 main path's first panel, rel err vs f64: {'; '.join(line)}")
+
+    trailing = check_trailing(torch, _build, card)
 
     # -- the main path, through the public API -----------------------------
     model = bench_model(pt)
@@ -3839,7 +3987,7 @@ def main() -> int:
     back_ms = cuda_ms(torch, lambda: panel_cholinv_backward(U, Wu, gU, gW))
     print(f"[{card}] panel_cholinv backward b={b}: {back_ms:.4f} ms, bound {back_bound:.4f} ms by {back_by} "
           f"({back_bound / back_ms:.1%} of it)")
-    time_value_grad_big(torch, model, data, card, args)
+    time_value_grad_big(torch, _build, model, data, card, args)
     if args.profile:
         print_profile(torch, lambda: model.log_likelihood(data), f"NLML N={N}", card, 2)
     check_lazy_at_main_n(torch, pt, _build, config, model, data, card, ll.item())
@@ -3929,6 +4077,10 @@ def main() -> int:
         if name == "radial_gram_cols_highd":
             entry["lazy_value_grad"] = highd["results"]["lazy_value_grad"]
         kernels.append(entry)
+    for panels, r in trailing.items():  # no TPU kernel: the JAX package's HIGHEST GEMMs
+        kernels.append({"name": f"trailing_update_P{panels}", "route": "cuda",
+                        "source": "albatross_tpu_torch/csrc/trailing_update.cu",
+                        "replaces": "XLA GEMMs, albatross_tpu/ops/blocked_cholesky.py", **r})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -895,8 +895,9 @@ def test_temperature_model_on_cuda_matches_cpu_f64(cuda):
 def test_mixed_feature_model_launches_the_gram_kernel(cuda):
     """A TaggedBatch of 2240 positions and 64 bias ids: the positions'
     Euclidean block and the cross gram run the gram kernel, the
-    factorization three panels of 768; f32 on the card against f64 on the
-    CPU, within about 10x the first reading on H100 (5.5e-4)."""
+    factorization three panels of 768 (two trailing-update launches); f32
+    on the card against f64 on the CPU, within about 10x the first reading
+    on H100 (5.5e-4)."""
     from albatross_tpu_torch.kernels import TaggedBatch, difference_of, for_tag
 
     rng = np.random.default_rng(4)
@@ -924,7 +925,8 @@ def test_mixed_feature_model_launches_the_gram_kernel(cuda):
     assert counts == {"radial_gram": 1, "radial_gram_diag": 0, "radial_gram_cols": 0, "radial_gram_diag_batched": 0,
                       "radial_gram_highd": 0, "radial_gram_diag_highd": 0, "radial_gram_cols_highd": 0,
                       "radial_gram_diag_batched_highd": 0, "radial_gram_d2_highd": 0,
-                      "panel_cholinv": 3, "panel_cholinv_batched": 0}
+                      "panel_cholinv": 3, "panel_cholinv_batched": 0,
+                      "trailing_update": 2, "trailing_update_backward": 0}
     assert total["radial_gram"] == 1 + 1 + 2  # the fit, the cross gram, the differences' two grams
     errors = [_max_rel(pred.mean, ref.mean), _max_rel(pred.variance, ref.variance),
               _max_rel(diff.mean, ref_diff.mean), _max_rel(diff.variance, ref_diff.variance)]

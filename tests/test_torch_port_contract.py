@@ -157,7 +157,8 @@ def test_cpu_tensors_never_launch_kernels():
     assert _build.LAUNCHES == {"radial_gram": 0, "radial_gram_diag": 0, "radial_gram_cols": 0,
                                "radial_gram_diag_batched": 0, "radial_gram_highd": 0, "radial_gram_diag_highd": 0,
                                "radial_gram_cols_highd": 0, "radial_gram_diag_batched_highd": 0,
-                               "radial_gram_d2_highd": 0, "panel_cholinv": 0, "panel_cholinv_batched": 0}
+                               "radial_gram_d2_highd": 0, "panel_cholinv": 0, "panel_cholinv_batched": 0,
+                               "trailing_update": 0, "trailing_update_backward": 0}
 
 
 def test_params_from_numpy():
