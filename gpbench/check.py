@@ -21,11 +21,12 @@ def worst(readings: list) -> float:
     return max((r if math.isfinite(r) else math.inf) for r in readings)
 
 
-def readings(cell, x, y, answers: list, seed: int, samples: int, detail: list | None = None) -> dict:
+def readings(cell, data, answers: list, seed: int, samples: int, detail: list | None = None) -> dict:
     """The numbers compared, each the worst over a seeded sample of
-    ``samples`` answers."""
+    ``samples`` answers; ``data`` is the ``generator.Training`` that the
+    program was handed."""
     sample = generator.check_sample(seed, len(answers), samples)
-    return cell.kind.readings(cell, x, y, answers, sample, seed, detail)
+    return cell.kind.readings(cell, data, answers, sample, seed, detail)
 
 
 def verdict(found: dict, limits: dict) -> tuple[bool, dict]:

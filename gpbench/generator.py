@@ -1,10 +1,10 @@
-"""The one traffic generator: every input of a cell, made from ``--seed``.
+"""The streams that every input of a cell is drawn from, made from ``--seed``.
 
-A configuration's ``data`` law gives the training set; a traffic file
-gives what the window sends, which its kind's loop (``kinds/``) draws
-here: the tunable vectors a tuner visits, each entry within +-``spread``
-of the configuration's value, or batches of ``batch`` fresh inputs on
-[low, high].
+A configuration's data law (``data/<law>.py``) draws the training set from
+the stream TRAINING and a predict mix's batches from BATCHES.  This module
+draws what the other kinds of mix send, the tunable vectors a tuner
+visits, each entry within +-``spread`` of the configuration's value, and
+the sample of answers that the check compares.
 Each stream draws from its own seed, derived from ``--seed`` and the
 stream's number, so the same seed gives the same inputs in any order of
 use, and the reference can make any batch again.  Every seed gives the
@@ -13,10 +13,27 @@ same sizes, so the seed changes the values and never the work.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
+from gpbench import spec
+
 TRAINING, TUNABLE, BATCHES, WARMUP, CHECK_SAMPLE = range(5)
+
+
+class Training(NamedTuple):
+    """A training set as a data law draws it: inputs, (N,) or (N, D),
+    targets (N,), and each target's variance (N,), or None where the law
+    gives none.  The program and the reference are handed the same."""
+
+    x: torch.Tensor
+    y: torch.Tensor
+    variance: torch.Tensor | None = None
+
+    def to(self, dtype: torch.dtype) -> Training:
+        return Training(*(None if t is None else t.to(dtype) for t in self))
 
 
 def stream_seed(seed: int, *stream: int) -> int:
@@ -26,24 +43,11 @@ def stream_seed(seed: int, *stream: int) -> int:
     return (int(state[0]) << 31) ^ int(state[1])
 
 
-def _generator(device, seed: int, *stream: int) -> torch.Generator:
+def device_generator(device, seed: int, *stream: int) -> torch.Generator:
+    """A torch generator on ``device`` seeded for one stream of ``seed``."""
     g = torch.Generator(device=device)
     g.manual_seed(stream_seed(seed, *stream))
     return g
-
-
-def training_data(config: dict, seed: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """(x, y) in the configuration's dtype on ``device``: n inputs drawn
-    uniformly on [low, high] and sorted, targets sin(frequency x) plus
-    noise times a standard normal, drawn on the device in float64."""
-    law, n = config["data"], config["n"]
-    dtype = getattr(torch, config["dtype"])
-    g = _generator(device, seed, TRAINING)
-    x = torch.rand(n, dtype=torch.float64, generator=g, device=device) * (law["high"] - law["low"]) + law["low"]
-    x = torch.sort(x).values.to(dtype)
-    noise = torch.randn(n, dtype=torch.float64, generator=g, device=device)
-    y = (torch.sin(law["frequency"] * x.double()) + law["noise"] * noise).to(dtype)
-    return x, y
 
 
 def tunable_vector(x0: np.ndarray, traffic: dict, seed: int, i: int, stream: int = TUNABLE) -> np.ndarray:
@@ -54,11 +58,9 @@ def tunable_vector(x0: np.ndarray, traffic: dict, seed: int, i: int, stream: int
 
 
 def predict_points(config: dict, traffic: dict, seed: int, i: int, device, stream: int = BATCHES) -> torch.Tensor:
-    """Batch i of a predict mix: ``batch`` inputs uniform on [low, high],
-    in the configuration's dtype."""
-    g = _generator(device, seed, stream, i)
-    x = torch.rand(traffic["batch"], dtype=torch.float64, generator=g, device=device)
-    return (x * (traffic["high"] - traffic["low"]) + traffic["low"]).to(getattr(torch, config["dtype"]))
+    """Batch i of a predict mix, as the configuration's data law under this
+    folder draws it (for readers that are handed no cell)."""
+    return spec.data_law(config).predict_points(config, traffic, seed, i, device, stream)
 
 
 def check_sample(seed: int, population: int, count: int) -> list[int]:

@@ -3,7 +3,8 @@ once in set-up, then each step predicts the mean and variance at the next
 batch of fresh seeded inputs and reads them back to the host.
 
 The mix (``traffic/<mix>.json``) gives ``batch``, the inputs a step, and
-``low`` and ``high``, the range they are drawn from.
+the parameters that the configuration's data law (``data/<law>.py``)
+draws them by: the sine law's ``low`` and ``high``.
 
 The check compares, the worst over a seeded sample of the window's
 batches, the largest error of a batch's means (``mean``) and of its
@@ -21,12 +22,12 @@ from gpbench.check import worst
 
 class Loop:
     def __init__(self, cell, program, seed: int):
-        self.config, self.traffic, self.seed = cell.config, cell.traffic, seed
+        self.config, self.traffic, self.seed, self.law = cell.config, cell.traffic, seed, cell.law
         self.device = program.x.device
         self.fit = program.model.fit(program.data)
 
     def inputs(self, i: int, stream: int = generator.BATCHES) -> torch.Tensor:
-        return generator.predict_points(self.config, self.traffic, self.seed, i, self.device, stream)
+        return self.law.predict_points(self.config, self.traffic, self.seed, i, self.device, stream)
 
     def step(self, xs: torch.Tensor) -> torch.Tensor:
         """The (2, batch) means and variances, on the host."""
@@ -38,14 +39,14 @@ class Loop:
         return bool(torch.isfinite(answer).all())
 
 
-def readings(cell, x, y, answers: list, sample: list, seed: int, detail: list | None = None) -> dict:
+def readings(cell, data, answers: list, sample: list, seed: int, detail: list | None = None) -> dict:
     """``answers`` holds the (2, batch) host tensor of each batch i, whose
-    inputs ``generator.predict_points(..., i)`` makes again."""
+    inputs the law's ``predict_points(..., i)`` makes again."""
     with torch.no_grad():
-        posterior = cell.reference.Posterior(cell.config, x.double(), y.double())
+        posterior = cell.reference.Posterior(cell.config, data.to(torch.float64))
         means, variances = [], []
         for i in sample:
-            xs = generator.predict_points(cell.config, cell.traffic, seed, i, x.device).double()
+            xs = cell.law.predict_points(cell.config, cell.traffic, seed, i, data.x.device).double()
             ref_mean, ref_var = (t.cpu() for t in posterior.marginal(xs))
             got = answers[i].double()
             means.append(float((got[0] - ref_mean).abs().max() / ref_mean.abs().max()))

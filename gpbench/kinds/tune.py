@@ -12,10 +12,11 @@ The check compares, the worst over a seeded sample of the window's steps:
 
 * ``value``: the objective's error over the reference's magnitude;
 * ``gradient``: the worst leaf, each entry's error over its own
-  reference magnitude, or over the objective's float32 rounding (2^-24 of
-  the reference value's magnitude) where the entry is smaller than that:
-  an entry that moves the objective by less than its rounding is nought to
-  rounding.
+  reference magnitude, or over the objective's rounding in the
+  configuration's dtype (its unit roundoff times the reference value's
+  magnitude: 2^-24 for float32, 2^-53 for float64) where the entry is
+  smaller than that: an entry that moves the objective by less than its
+  rounding is nought to rounding.
 """
 
 from __future__ import annotations
@@ -29,7 +30,6 @@ from gpbench import generator
 from gpbench.check import worst
 from gpbench.reference.common import value_grad
 
-F32_ROUNDING = 2.0**-24
 
 
 class Loop:
@@ -59,26 +59,32 @@ class Loop:
         return math.isfinite(value) and bool(np.all(np.isfinite(grad)))
 
 
-def leaf_gaps(grad, ref_grad, ref_value: float) -> np.ndarray:
+def unit_roundoff(dtype: str) -> float:
+    """Half the gap between 1 and the next number of ``dtype``: 2^-24 for
+    float32, 2^-53 for float64."""
+    return torch.finfo(getattr(torch, dtype)).eps / 2
+
+
+def leaf_gaps(grad, ref_grad, ref_value: float, dtype: str) -> np.ndarray:
     """Each gradient entry's error over its own reference magnitude, or
-    over the objective's float32 rounding where the entry is below it."""
+    over the objective's rounding in ``dtype`` where the entry is below it."""
     ref_grad = np.asarray(ref_grad, dtype=np.float64)
-    scale = np.maximum(np.abs(ref_grad), F32_ROUNDING * abs(ref_value))
+    scale = np.maximum(np.abs(ref_grad), unit_roundoff(dtype) * abs(ref_value))
     return np.abs(np.asarray(grad, dtype=np.float64) - ref_grad) / scale
 
 
-def readings(cell, x, y, answers: list, sample: list, seed: int, detail: list | None = None) -> dict:
+def readings(cell, data, answers: list, sample: list, seed: int, detail: list | None = None) -> dict:
     """``answers`` holds (tunable vector, value, gradient) of each step;
     ``detail``, where given, gets each sampled step's raw numbers."""
     names = sorted(cell.config["tunable"])
     objective = getattr(cell.reference, cell.traffic["objective"])
-    x64, y64 = x.double(), y.double()
+    data64 = data.to(torch.float64)
     values, grads = [], []
     for i in sample:
         vector, value, grad = answers[i]
-        ref_value, ref_grad = value_grad(objective, cell.config, x64, y64, dict(zip(names, vector.tolist())))
+        ref_value, ref_grad = value_grad(objective, cell.config, data64, dict(zip(names, vector.tolist())))
         ref_grad = [ref_grad[n] for n in names]
-        gaps = leaf_gaps(grad, ref_grad, ref_value)
+        gaps = leaf_gaps(grad, ref_grad, ref_value, cell.config["dtype"])
         values.append(abs(value - ref_value) / abs(ref_value))
         grads.append(float(np.max(gaps)))
         if detail is not None:

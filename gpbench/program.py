@@ -2,8 +2,11 @@
 
 This module, ``models/`` and ``objectives/`` are the only ones of the
 benchmark that import the program.  ``Program`` builds the configuration's
-kernel through the port's public API, hands it to the model's module
-(``models/<model>.py``) to make the model, and holds the training data.
+covariance through the port's public API: the model module's own
+``covariance(config)`` where it defines one, else the radial kernel that
+``config["kernel"]`` names plus measurement noise.  It hands that to the
+model's module (``models/<model>.py``) to make the model, and holds the
+training data, with each target's variance where the data law gives one.
 It also hands out the port's own gram, panel and QR entries at the shapes
 that a cell's step launches, for the per-layer readers to time.
 """
@@ -23,16 +26,23 @@ from albatross_tpu_torch.ops.radial_gram import radial_gram
 PROFILES = {"SquaredExponential": "squared_exponential"}
 
 
+def radial_plus_noise(config: dict):
+    """The radial kernel that ``config["kernel"]`` names plus independent
+    measurement noise: the covariance of a model module that defines none."""
+    k = config["kernel"]
+    return getattr(pt, k["radial"])(k["length_scale"], k["sigma"]) + pt.measurement_only(
+        pt.IndependentNoise(k["noise"], assume_unique=k["noise_assume_unique"]))
+
+
 class Program:
     """One cell's model and training data on the card."""
 
-    def __init__(self, cell, x: torch.Tensor, y: torch.Tensor):
-        self.config, self.x = cell.config, x
-        k = self.config["kernel"]
-        kernel = getattr(pt, k["radial"])(k["length_scale"], k["sigma"]) + pt.measurement_only(
-            pt.IndependentNoise(k["noise"], assume_unique=k["noise_assume_unique"]))
-        self.model = cell.model.build(self.config, kernel)
-        self.data = pt.RegressionDataset.create(x, y)
+    def __init__(self, cell, data):
+        """``data``: the ``generator.Training`` that the cell's law drew."""
+        self.config, self.x = cell.config, data.x
+        covariance = getattr(cell.model, "covariance", radial_plus_noise)
+        self.model = cell.model.build(self.config, covariance(self.config))
+        self.data = pt.RegressionDataset.create(data.x, data.y, data.variance)
 
     # the port's kernels at a cell's shapes, for the per-layer readers
 

@@ -8,7 +8,7 @@ import torch
 from gpbench.reference.common import LOG_2PI, radial_gram
 
 
-def nlml(x, y, params, config: dict):
+def nlml(data, params, config: dict):
     """FITC's negative log likelihood by the Woodbury identity and the
     determinant lemma: Q_ff = K_fu K_uu^-1 K_uf, Lambda = diag(K_ff - Q_ff)
     + noise^2 + measurement nugget, Sigma = K_uu + K_uf Lambda^-1 K_fu, and
@@ -17,7 +17,11 @@ def nlml(x, y, params, config: dict):
                     - b^T Sigma^-1 b + n log 2 pi),  b = K_uf Lambda^-1 y.
 
     The inducing inputs are evenly spaced over the inputs' range, in the
-    configuration's precision; K_uu carries the inducing nugget."""
+    configuration's precision; K_uu carries the inducing nugget.  A
+    target variance has no reference here."""
+    if data.variance is not None:
+        raise ValueError("the FITC reference takes no target variance")
+    x, y = data.x, data.y
     kernel, dtype = config["kernel"], getattr(torch, config["dtype"])
     u = torch.linspace(float(x.min()), float(x.max()), config["inducing_points"], dtype=dtype,
                        device=x.device).double()

@@ -2,8 +2,8 @@
 
     python3 -m gpbench.run --workload exact_se1d.tune --seed 7 --seconds 40 --trace 0
 
-Set-up makes the cell's data from the seed, builds the model through the
-port's public API and runs two warm-up steps of the cell's own shapes (the
+Set-up makes the cell's data from the seed by the configuration's data
+law (``data/<law>.py``), builds the model through the port's public API and runs two warm-up steps of the cell's own shapes (the
 first run in a checkout also builds the port's kernels into
 ``build/kernels/``).  The window then runs the traffic mix's closed loop
 for ``--seconds``.  ``--trace 0`` reports the cell's end-to-end metrics;
@@ -86,10 +86,10 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str, t_start:
             torch.cuda.synchronize()
 
     marks = [("imports", time.perf_counter())]
-    x, y = generator.training_data(config, seed, device)
+    data = cell.law.training_data(config, seed, device)
     sync()
     marks.append(("data", time.perf_counter()))
-    program = Program(cell, x, y)
+    program = Program(cell, data)
     loop = cell.kind.Loop(cell, program, seed)
     sync()
     marks.append(("model", time.perf_counter()))
@@ -140,7 +140,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str, t_start:
     del ctx
     program.close(loop)
     t = time.perf_counter()
-    found = check.readings(cell, x, y, answers[:len(completed)] or answers, seed, cell.limits["samples"])
+    found = check.readings(cell, data, answers[:len(completed)] or answers, seed, cell.limits["samples"])
     correct, table = check.verdict(found, cell.limits["limits"])
     correct = correct and failed == 0
     log(f"check: {min(len(steps), cell.limits['samples'])} answers against the float64 reference in "

@@ -4,10 +4,15 @@
 configurations and traffic mixes, and the metrics.  Each piece is a file
 of its own under this folder, found by a name that a data file gives:
 
-* ``configs/<config>.json``: the model's sizes, parameters and data law;
-  its ``model`` names the two modules below;
-* ``models/<model>.py``: how the port builds that model, and its counts
-  and kernel entries for the per-layer readers;
+* ``configs/<config>.json``: the model's sizes, dtype, parameters and
+  data law; its ``model`` names the two modules below, and its
+  ``data.name`` names ``data/<law>.py`` (``sine`` where it names none);
+* ``data/<law>.py``: the training set, inputs of any width with a
+  variance on each target where the law gives one, and a predict mix's
+  batches, each drawn from ``--seed``;
+* ``models/<model>.py``: how the port builds that model (with its own
+  ``covariance(config)`` where it defines one), and its counts and kernel
+  entries for the per-layer readers;
 * ``reference/<model>.py``: the plain float64 reference of that model;
 * ``traffic/<mix>.json``: the parameters of one mix; its ``kind`` names
   ``kinds/<kind>.py``, the loop that the window runs and the numbers its
@@ -16,7 +21,7 @@ of its own under this folder, found by a name that a data file gives:
 * ``limits/<workload>.json``: the check's limits and sample size;
 * ``metrics/<metric>.py``: one reader a metric, ``read(ctx)``.
 
-So a new configuration, model, mix, kind of mix, cell or metric is a new
+So a new configuration, data law, model, mix, kind of mix, cell or metric is a new
 file and a new entry in ``BENCHMARK.json``, and no file here changes.
 """
 
@@ -30,6 +35,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+DEFAULT_LAW = "sine"
 
 
 def load_json(path: Path) -> dict:
@@ -60,6 +66,12 @@ def plugin(folder: str, name: str, here: Path = HERE):
     return sys.modules[key]
 
 
+def data_law(config: dict, here: Path = HERE):
+    """``data/<law>.py``: the law that the configuration's ``data`` names
+    under ``name``, or the sine law where it names none."""
+    return plugin("data", config["data"].get("name", DEFAULT_LAW), here)
+
+
 @dataclasses.dataclass
 class Cell:
     """One workload of ``BENCHMARK.json`` with its pieces loaded."""
@@ -80,6 +92,11 @@ class Cell:
     def kind(self):
         """``kinds/<kind>.py``: the window's loop and the check's numbers."""
         return plugin("kinds", self.traffic["kind"], self.here)
+
+    @property
+    def law(self):
+        """``data/<law>.py``: the training set and the predict batches."""
+        return data_law(self.config, self.here)
 
     @property
     def model(self):

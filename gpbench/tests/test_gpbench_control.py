@@ -1,5 +1,7 @@
-"""On the card: the control (the program with its TF32 path on) fails the
-check at the cell's own size, while the program as configured passes.
+"""On the card: the control, the program in the precision below the
+configuration's (a float32 configuration's with its TF32 path on, a
+float64 one's in float32), fails the check at the cell's own size, while
+the program as configured passes.
 Run on the card: python -m pytest -p no:cacheprovider gpbench/tests/test_gpbench_control.py"""
 
 import pytest
@@ -21,7 +23,7 @@ def test_tf32_control_fails_and_the_program_passes(name):
     cell = spec.load_cell(name)
     seed = 2**31 + 101
     limits = cell.limits["limits"]
-    program = calibrate.readings_for(cell, seed, tf32=False)
-    control = calibrate.readings_for(cell, seed, tf32=True)
+    program = calibrate.readings_for(cell, seed, control=False)
+    control = calibrate.readings_for(cell, seed, control=True)
     assert all(program[k] <= limit for k, limit in limits.items()), program
     assert any(control[k] > limit for k, limit in limits.items()), control

@@ -15,26 +15,26 @@ from gpbench.reference import common, exact, fitc
 def f64_program(name):
     cell = tiny_cell(name)
     cell.config = dict(cell.config, dtype="float64")
-    x, y = generator.training_data(cell.config, 11, "cpu")
-    program = Program(cell, x, y)
-    return cell, x, y, cell.kind.Loop(cell, program, 11)
+    data = cell.law.training_data(cell.config, 11, "cpu")
+    program = Program(cell, data)
+    return cell, data, cell.kind.Loop(cell, program, 11)
 
 
 @pytest.mark.parametrize("name", ["exact_se1d.tune", "fitc_se1d.tune", "exact_se1d.loo_tune"])
 def test_objective_and_gradient(name):
-    cell, x, y, loop = f64_program(name)
+    cell, data, loop = f64_program(name)
     objective = getattr(cell.reference, cell.traffic["objective"])
     for i in range(2):
         vector, value, grad = loop.step(loop.inputs(i))
-        ref_value, ref_grad = common.value_grad(objective, cell.config, x, y, dict(zip(loop.names, vector.tolist())))
+        ref_value, ref_grad = common.value_grad(objective, cell.config, data, dict(zip(loop.names, vector.tolist())))
         assert value == pytest.approx(ref_value, rel=1e-10)
         np.testing.assert_allclose(grad, [ref_grad[n] for n in loop.names], rtol=1e-7,
                                    atol=1e-9 * np.max(np.abs(grad)))
 
 
 def test_marginal_predictions():
-    cell, x, y, loop = f64_program("exact_se1d.predict")
-    posterior = cell.reference.Posterior(cell.config, x, y)
+    cell, data, loop = f64_program("exact_se1d.predict")
+    posterior = cell.reference.Posterior(cell.config, data)
     xs = loop.inputs(0)
     got = loop.step(xs)
     mean, variance = posterior.marginal(xs)
@@ -52,7 +52,8 @@ def test_reference_fitc_nears_the_exact_gp_with_every_point_inducing():
     params = {"length_scale": torch.tensor(0.5, dtype=torch.float64), "sigma": torch.tensor(1.0, dtype=torch.float64),
               "noise": torch.tensor(0.3, dtype=torch.float64), "measurement_nugget": torch.tensor(0.0, dtype=torch.float64),
               "inducing_nugget": torch.tensor(1e-12, dtype=torch.float64)}
-    assert float(fitc.nlml(x, y, params, config)) == pytest.approx(float(exact.nlml(x, y, params, config)), rel=1e-6)
+    data = generator.Training(x, y)
+    assert float(fitc.nlml(data, params, config)) == pytest.approx(float(exact.nlml(data, params, config)), rel=1e-6)
 
 
 def test_leaf_gaps_hold_each_entry_to_its_own_scale():
@@ -61,7 +62,20 @@ def test_leaf_gaps_hold_each_entry_to_its_own_scale():
     from gpbench.kinds.tune import leaf_gaps
 
     ref = [1e-3, 4e5, 0.0]
-    gaps = leaf_gaps([1.1e-3, 4e5, 1e-6], ref, ref_value=1e4)
+    gaps = leaf_gaps([1.1e-3, 4e5, 1e-6], ref, ref_value=1e4, dtype="float32")
     assert gaps[0] == pytest.approx(0.1)
     assert gaps[1] == 0.0
     assert gaps[2] == pytest.approx(1e-6 / (2.0**-24 * 1e4))
+
+
+@pytest.mark.parametrize("dtype,rounding", [("float32", 2.0**-24), ("float64", 2.0**-53)])
+def test_leaf_gaps_floor_is_the_configurations_unit_roundoff(dtype, rounding):
+    """The floor under a small entry is the unit roundoff of the
+    configuration's dtype times the objective: a float64 configuration's
+    entries are held about nine digits tighter than a float32 one's."""
+    from gpbench.kinds.tune import leaf_gaps, unit_roundoff
+
+    assert unit_roundoff(dtype) == rounding
+    gaps = leaf_gaps([1e-20, 3.0], [0.0, 2.0], ref_value=-1e4, dtype=dtype)
+    assert gaps[0] == 1e-20 / (rounding * 1e4)
+    assert gaps[1] == 0.5

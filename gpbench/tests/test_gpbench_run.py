@@ -52,7 +52,7 @@ def test_nothing_loads_jax():
         "from gpbench import spec\n"
         "for m in pkgutil.walk_packages(gpbench.__path__, 'gpbench.'):\n"
         "    if '.tests' not in m.name: importlib.import_module(m.name)\n"
-        "for folder in ('kinds', 'models', 'objectives', 'reference', 'metrics'):\n"
+        "for folder in ('data', 'kinds', 'models', 'objectives', 'reference', 'metrics'):\n"
         "    for path in sorted((spec.HERE / folder).glob('*.py')): spec.plugin(folder, path.stem)\n"
         "from gpbench import run\n"
         "print(run.forbidden_modules(), 'albatross_tpu_torch' in sys.modules)\n")

@@ -3,10 +3,9 @@ kind of traffic among them, are new files that the harness picks up with
 no edit."""
 
 import json
-import shutil
 import time
 
-from conftest import tiny_cell
+from conftest import copy_harness, tiny_cell
 
 from gpbench import run, spec
 
@@ -32,12 +31,6 @@ def test_configs_are_their_files():
         assert held["reduced"] == config["reduced"]
 
 
-def _copy(tmp_path):
-    here = tmp_path / "gpbench"
-    shutil.copytree(spec.HERE, here, ignore=shutil.ignore_patterns("tests", "__pycache__"))
-    return here, json.loads(json.dumps(BENCH))
-
-
 def _run(bench, here, name):
     cell = spec.load_cell(name, bench, here)
     return cell, run.run_cell(cell, 5, 1.0, False, "cpu", time.perf_counter())[0]
@@ -46,7 +39,7 @@ def _run(bench, here, name):
 def test_new_files_beside_the_others_are_picked_up(tmp_path):
     """A configuration, a traffic mix, a cell's limits and a metric reader,
     each only a new file, run through the harness unchanged."""
-    here, bench = _copy(tmp_path)
+    here, bench = copy_harness(tmp_path)
     config = json.loads((here / "configs" / "exact_se1d.json").read_text())
     config.update(name="exact_wide", n=256, kernel=dict(config["kernel"], length_scale=2.0, noise=0.5))
     (here / "configs" / "exact_wide.json").write_text(json.dumps(config))
@@ -72,6 +65,7 @@ import torch
 
 import albatross_tpu_torch as pt
 from gpbench.check import worst
+from gpbench.generator import Training
 
 
 class Loop:
@@ -91,13 +85,13 @@ class Loop:
         return answer[1] == answer[1]
 
 
-def readings(cell, x, y, answers, sample, seed, detail=None):
+def readings(cell, data, answers, sample, seed, detail=None):
     params = {k: torch.tensor(cell.config["kernel"][k], dtype=torch.float64)
               for k in ("length_scale", "sigma", "noise")}
     gaps = []
     for i in sample:
         n, value = answers[i]
-        ref = -cell.reference.nlml(x[:n].double(), y[:n].double(), params, cell.config).item()
+        ref = -cell.reference.nlml(Training(data.x[:n], data.y[:n]).to(torch.float64), params, cell.config).item()
         gaps.append(abs(value - ref) / abs(ref))
     return {"log_likelihood": worst(gaps)}
 '''
@@ -106,7 +100,7 @@ def readings(cell, x, y, answers, sample, seed, detail=None):
 def test_a_new_kind_of_traffic_is_new_files(tmp_path):
     """A kind of traffic that the harness has never run: its loop and its
     check in ``kinds/<kind>.py``, its parameters in a data file."""
-    here, bench = _copy(tmp_path)
+    here, bench = copy_harness(tmp_path)
     (here / "kinds" / "refit.py").write_text(REFIT_KIND)
     (here / "traffic" / "refit.json").write_text(json.dumps({"kind": "refit", "first": 200}))
     (here / "limits" / "exact_se1d.refit.json").write_text(json.dumps(
