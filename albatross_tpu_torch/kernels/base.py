@@ -9,6 +9,10 @@ TaggedBatch's gram from per-tag blocks (kernels/variants.py), and
 integrates a LinearCombinationBatch by one gram over its flattened
 features contracted with the coefficients.  ``call_trace`` evaluates every
 node of the expression tree for one feature pair through that chain.
+
+``__call__``, one evaluation of a whole covariance, opens the span
+``albatross.covariance`` (utils/profiling.py).  No kernel's ``_matrix``
+calls another covariance's ``__call__``, so the span never nests in itself.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 
 from .. import config
 from ..core.module import Module
+from ..utils.profiling import named_scope
 from .features import LinearCombinationBatch, Measurement, strip_measurement
 
 
@@ -35,6 +40,7 @@ class CovarianceFunction(Module):
         full = self._matrix(X, X, x_meas, x_meas)
         return None if full is None else torch.diagonal(full)
 
+    @named_scope("albatross.covariance")
     def __call__(self, X, Y=None) -> torch.Tensor:
         symmetric = Y is None
         result = self.matrix_or_none(X, X if symmetric else Y)

@@ -5,7 +5,8 @@ defaults, priors, closed forms and length-scale back-solvers.  A Euclidean
 gram goes through ``ops.radial_gram.radial_gram`` -- the hand-written CUDA
 kernel for CUDA tensors, the closed form for CPU tensors; any other metric
 takes the profile of its ``pairwise`` distances in torch ops, as the JAX
-package computes those with XLA ops outside its Pallas kernel.
+package computes those with XLA ops outside its Pallas kernel; those
+distances are the span ``albatross.covariance.metric``.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from ..core.parameters import Parameter, host_float
 from ..core.priors import NonNegativePrior, PositivePrior
+from ..utils.profiling import named_scope
 from .base import CovarianceFunction
 from .distances import AngularDistance, DistanceMetric, EuclideanDistance, RadialDistance
 
@@ -107,7 +109,9 @@ class _RadialKernel(CovarianceFunction):
 
         ls, sigma = self._params_values()
         if not isinstance(self.distance_metric, EuclideanDistance):
-            return self._profile(self.distance_metric.pairwise(X, Y), ls, sigma)
+            with named_scope("albatross.covariance.metric"):
+                distance = self.distance_metric.pairwise(X, Y)
+            return self._profile(distance, ls, sigma)
         if host_float(ls) <= 0.0:
             return torch.zeros((X.shape[0], Y.shape[0]), dtype=X.dtype, device=X.device)
         return radial_gram(X, Y, ls, sigma, self._profile_name)

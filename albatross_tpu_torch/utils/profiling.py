@@ -4,7 +4,8 @@ Counterpart of ``albatross_tpu.utils.profiling``.  ``named_scope(name)``
 is the port's one span: the port opens one at each layer boundary of its
 hot paths (every name starts with ``albatross.``: the NLML, the
 factorization and its panel, panel solve, trailing update and whitening,
-the gram, the solves, the leave-one-out folds and blocks, the sparse GP's
+the gram, one evaluation of a covariance function and its non-Euclidean
+metrics, the solves, the leave-one-out folds and blocks, the sparse GP's
 components and QR), as a context manager or a decorator.
 
 Spans are **off** by default.  Off, entering and leaving a span reads one

@@ -1,21 +1,28 @@
 """The port's layer spans (``albatross_tpu_torch.utils.profiling``): off,
 they record nothing and create no ``RecordFunction``; on (``spans()``,
-``trace()``), the NLML, FITC, leave-one-out and predict steps open the
-``albatross.*`` spans with their stated nesting, and the port's autograd
-Functions open their forward's span in their backward."""
+``trace()``), the NLML, FITC, leave-one-out, predict and temperature-model
+steps open the ``albatross.*`` spans with their stated nesting, and the
+port's autograd Functions open their forward's span in their backward.
+The composed covariance opens ``albatross.covariance`` once an evaluation
+and ``albatross.covariance.metric`` once a non-Euclidean radial term, and
+the backward of its plain torch ops belongs to it by sequence number
+(``gpbench/spans.py``'s rule)."""
 
 import contextlib
 import importlib
 import json
 import threading
 
+import numpy as np
 import pytest
 import torch
 
 import albatross_tpu_torch as pt
 from albatross_tpu_torch import config
+from albatross_tpu_torch import temperature as ttemp
 from albatross_tpu_torch.evaluation import LeaveOneOutLikelihood
 from albatross_tpu_torch.utils import profiling
+from gpbench import spans as reducer
 
 rg = importlib.import_module("albatross_tpu_torch.ops.radial_gram")
 
@@ -24,6 +31,8 @@ torch.set_num_threads(2)
 BACKWARD = "autograd::engine::evaluate_function: "
 LL = "albatross.gp.log_likelihood"
 CHOL = "albatross.cholesky"
+COV = "albatross.covariance"
+METRIC = "albatross.covariance.metric"
 
 
 def _data(n: int, seed: int = 3):
@@ -68,7 +77,19 @@ def _predict_step():
     return lambda: fit.predict(xs).marginal()
 
 
-STEPS = {"nlml": _nlml_step, "fitc": _fitc_step, "loo": _loo_step, "predict": _predict_step}
+def _temperature_step():
+    """The upstream temperature model's NLML value+grad over 384 stations
+    in float64: its covariance through the DSL, over the angular and the
+    radial station metrics."""
+    stations, obs, _ = ttemp.synthesize_stations(384, np.random.default_rng(5))
+    data = pt.RegressionDataset.create(torch.as_tensor(stations), torch.as_tensor(obs),
+                                       variance=torch.ones(384, dtype=torch.float64))
+    model = ttemp.build_model()
+    return lambda: _value_grad(model, lambda m, d: -m.log_likelihood(d), data)
+
+
+STEPS = {"nlml": _nlml_step, "fitc": _fitc_step, "loo": _loo_step, "predict": _predict_step,
+         "temperature": _temperature_step}
 
 # each span's parents over a step: the innermost enclosing port span or
 # backward node on its thread (None for a root)
@@ -85,7 +106,8 @@ NESTING = {
     "fitc": {
         "albatross.sparse.log_likelihood": {None},
         "albatross.sparse.components": {"albatross.sparse.log_likelihood"},
-        "albatross.gram": {"albatross.sparse.components"},
+        "albatross.gram": {"albatross.sparse.components", COV},  # K_fu, and K_uu through the covariance's call
+        COV: {"albatross.sparse.components"},
         CHOL: {"albatross.sparse.components"},
         "albatross.solve": {"albatross.sparse.components", "albatross.sparse.log_likelihood"},
         "albatross.sparse.qr": {"albatross.sparse.log_likelihood"},
@@ -104,6 +126,12 @@ NESTING = {
         "albatross.gp.predict": {None},
         "albatross.gram": {"albatross.gp.predict"},
         "albatross.solve": {"albatross.gp.predict"},
+    },
+    "temperature": {
+        LL: {None},
+        COV: {LL},
+        METRIC: {COV},
+        CHOL: {LL},
     },
 }
 
@@ -160,6 +188,39 @@ def test_spans_off_record_nothing(case, blocks_of_128, monkeypatch):
     with profiling.spans():
         step()
     assert made and all(a[0].startswith("albatross.") for a in made)
+
+
+def test_the_covariance_spans_open_once_an_evaluation_and_never_in_themselves():
+    """One NLML step evaluates the temperature covariance once: one
+    ``albatross.covariance``, and inside it one ``albatross.covariance.metric``
+    for each of its two non-Euclidean radial terms (angular, radial); no
+    covariance span opens inside another."""
+    events = _profile(_temperature_step(), on=True)
+    covariance = [e for e in events if e[0] == COV]
+    metric = [e for e in events if e[0] == METRIC]
+    assert len(covariance) == 1 and len(metric) == 2
+    for name, start, end, thread in covariance + metric:
+        assert not [e for e in events if e[0] == name and e[3] == thread and e[1:3] != (start, end)
+                    and e[1] <= start and end <= e[2]]
+
+
+def test_the_covariance_backward_belongs_to_the_covariance_span():
+    """The backward of the composed covariance's plain torch ops (its
+    profiles' ``exp``) opens no span; by its forward op's sequence number,
+    the benchmark's reducer puts it under ``albatross.covariance``."""
+    step = _temperature_step()
+    step()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with profiling.spans():
+            step()
+    rows = reducer.rows(prof.profiler.kineto_results.events())
+    index = reducer._Index([r for r in rows if not r.on_card])
+    nodes = [r for r in rows if r.name == BACKWARD + "ExpBackward0"]
+    assert len(nodes) == 2  # the angular exponential's and the radial squared exponential's
+    for node in nodes:
+        assert not [r for r in rows if r.name.startswith("albatross.") and r.thread == node.thread
+                    and r.start <= node.start and node.end <= r.end]
+        assert COV in index.stack(node.thread, (node.start + node.end) // 2)
 
 
 def test_gram_function_backward_opens_the_gram_span(monkeypatch):
