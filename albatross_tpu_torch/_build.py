@@ -30,7 +30,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-KERNELS = ("radial_gram", "panel_cholinv", "trailing_update")
+KERNELS = ("radial_gram", "panel_cholinv", "trailing_update", "whiten_sumsq")
 
 # kernel wrapper name -> launches since the last reset; the gram kernel
 # counts its four launch forms apart: the cross covariance, the square
@@ -39,13 +39,14 @@ KERNELS = ("radial_gram", "panel_cholinv", "trailing_update")
 # "_highd" in its tensor-core branch (f32, D >= 8), where the backward's
 # squared-distance launches count as "radial_gram_d2_highd"; the panel
 # kernel its single and its batched form; the trailing-update kernel its
-# forward and its backward (one launch a panel each)
+# forward and its backward (one launch a panel each); the whitening kernel
+# each of its 4 P - 1 launches a call
 LAUNCHES: dict[str, int] = {"radial_gram": 0, "radial_gram_diag": 0, "radial_gram_cols": 0,
                             "radial_gram_diag_batched": 0, "radial_gram_highd": 0,
                             "radial_gram_diag_highd": 0, "radial_gram_cols_highd": 0,
                             "radial_gram_diag_batched_highd": 0, "radial_gram_d2_highd": 0,
                             "panel_cholinv": 0, "panel_cholinv_batched": 0,
-                            "trailing_update": 0, "trailing_update_backward": 0}
+                            "trailing_update": 0, "trailing_update_backward": 0, "whiten_sumsq": 0}
 # kernel name -> calls of its autograd backward since the last reset
 BACKWARDS: dict[str, int] = {"panel_cholinv": 0}
 
@@ -60,8 +61,8 @@ def reset_launch_counts() -> None:
             counts[key] = 0
 
 
-def count_launch(name: str) -> None:
-    LAUNCHES[name] += 1
+def count_launch(name: str, launches: int = 1) -> None:
+    LAUNCHES[name] += launches
 
 
 def count_backward(name: str) -> None:

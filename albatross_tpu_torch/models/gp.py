@@ -7,7 +7,8 @@ Counterpart of ``albatross_tpu.models.gp`` (main path):
   information vector v = K^-1 y;
 * predict mean  : K*^T v;
 * predict marg. : prior_diag - colsum(K^-1 K* o K*), with the clamp of
-  rounding-scale negatives;
+  rounding-scale negatives; through a Cholesky factor the explained part
+  is ||L^-1 K*||^2 by column, one forward substitution;
 * predict joint : K** - K*^T K^-1 K*;
 * log_likelihood: -NLL(y - m(X), K(X, X)) + sum of prior log-pdfs, with no
   target variance added, as the reference does; ``config.NLML_COMPENSATED``
@@ -75,19 +76,21 @@ def gp_mean_prediction(cross_cov, information):
     return cross_cov.T @ information
 
 
-def gp_marginal_prediction(cross_cov, prior_variance, information, train_covariance):
-    pred = gp_mean_prediction(cross_cov, information)
-    explained = train_covariance.solve(cross_cov)
-    explained_variance = torch.sum(explained * cross_cov, dim=0)
-    # In f32 the cancellation prior - explained can round a few ulps
-    # negative next to training points; clamp only rounding-scale negatives
-    # (window 1e-3 of the magnitudes: the solve's forward error is
-    # kappa-amplified), so a failed factorization still surfaces.
+def marginal_variance(prior_variance, explained_variance):
+    """prior - explained.  In f32 the cancellation can round a few ulps
+    negative next to training points; clamp only rounding-scale negatives
+    (window 1e-3 of the magnitudes: the solve's forward error is
+    kappa-amplified), so a failed factorization still surfaces."""
     raw = prior_variance - explained_variance
     scale = torch.abs(prior_variance) + torch.abs(explained_variance)
     rounding_negative = raw >= -1e-3 * scale
+    return torch.where(rounding_negative, torch.clamp_min(raw, 0.0), raw)
+
+
+def gp_marginal_prediction(cross_cov, prior_variance, information, train_covariance):
+    pred = gp_mean_prediction(cross_cov, information)
     return MarginalDistribution(
-        pred, torch.where(rounding_negative, torch.clamp_min(raw, 0.0), raw)
+        pred, marginal_variance(prior_variance, train_covariance.explained_variance(cross_cov))
     )
 
 

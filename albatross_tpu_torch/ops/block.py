@@ -27,6 +27,7 @@ import torch
 from ..utils.profiling import named_scope
 from .blocked_cholesky import cholesky
 from .compensated import accurate_sum_of_logs
+from .linalg import ExplainedBySolve
 
 
 def pad_blocks(blocks: Sequence[torch.Tensor]):
@@ -223,7 +224,7 @@ class DiagonalCholesky:
 
 
 @dataclasses.dataclass(frozen=True)
-class BlockSymmetric:
+class BlockSymmetric(ExplainedBySolve):
     """M = [A B; B^T C] through A's factorization, Ai_B = A^-1 B and the
     factorized Schur complement S = C - B^T A^-1 B: a training covariance
     grown without refactorizing its old block."""

@@ -4,7 +4,9 @@ Counterpart of ``albatross_tpu.ops.linalg``: ``CholeskyFactor`` with
 factorize, factorize_whiten, nlml_terms (the materialized K, or the
 lazy-gram loop with ``col_fn``), factorize_safe (jitter escalation), the
 solves, the log-determinant, the inverse pieces behind fast
-cross-validation (ops/nlml.py) and the serving-mode explicit inverse; the
+cross-validation (ops/nlml.py), the serving-mode explicit inverse and a
+prediction's explained variance by one forward substitution (on the
+whitening kernel for CUDA f32 factors, ops/whiten.py); the
 ``DirectInverse`` and ``ExplainedCovariance`` representations;
 ``truncated_psd_solve`` and ``vertical_stack``.  Above n = 2048 the
 factorization is the blocked column-panel loop; at or below it
@@ -26,6 +28,7 @@ from ..utils.profiling import named_scope
 from .blocked_cholesky import blocked_cholesky_cols, blocked_cholesky_cols_fused, cholesky
 from .compensated import accurate_sum_of_logs, blocked_cholesky_dw
 from .nlml import blocked_lauum, tri_inverse_full
+from .whiten import plain_explained_variance, whiten_sumsq
 
 # the JAX package's blocked-factorization threshold
 _BLOCKED_MIN_N = 2048
@@ -42,6 +45,19 @@ def _prepare(K: torch.Tensor, jitter: float, assume_symmetric: bool) -> torch.Te
     if jitter:
         K = K + jitter * torch.eye(K.shape[0], dtype=K.dtype, device=K.device)
     return K
+
+
+def _on_whiten_kernel(L: torch.Tensor, cross: torch.Tensor) -> bool:
+    """Whether ``explained_variance`` runs on the whitening kernel
+    (ops/whiten.py): a contiguous CUDA f32 factor of n above the blocked
+    threshold with n a multiple of 128, a CUDA f32 (n, m) cross covariance
+    with m > 0 on its device, and no gradient asked of either (the kernel
+    has no backward).  CPU tensors, f64, other shapes and differentiated
+    predictions take the plain form."""
+    n = L.shape[0]
+    return (L.is_cuda and L.dtype == torch.float32 and L.is_contiguous() and n > _BLOCKED_MIN_N and n % 128 == 0
+            and cross.ndim == 2 and cross.shape[1] > 0 and cross.dtype == L.dtype and cross.device == L.device
+            and not (torch.is_grad_enabled() and (L.requires_grad or cross.requires_grad)))
 
 
 def _lower_solve(L: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
@@ -188,6 +204,19 @@ class CholeskyFactor:
         y = torch.linalg.solve_triangular(self.L.T, rhs2d, upper=True)
         return y if rhs.ndim > 1 else y[:, 0]
 
+    @named_scope("albatross.solve")
+    def explained_variance(self, cross: torch.Tensor) -> torch.Tensor:
+        """diag(cross^T A^-1 cross) = ||L^-1 cross[:, j]||^2 for each column
+        j of the (n, m) ``cross``: one forward substitution and its column
+        sums of squares, under ``albatross.solve.whiten``; on the whitening
+        kernel where ``_on_whiten_kernel`` says so (L's diagonal blocks and
+        their inverses computed on every call, inside that span), else the
+        plain form."""
+        with named_scope("albatross.solve.whiten"):
+            if _on_whiten_kernel(self.L, cross):
+                return whiten_sumsq(self.L, cross)
+            return plain_explained_variance(self.L, cross)
+
     def sqrt_product(self, rhs: torch.Tensor) -> torch.Tensor:
         """L^T rhs."""
         return self.L.T @ rhs
@@ -257,8 +286,17 @@ class CholeskyFactor:
         return blocks
 
 
+class ExplainedBySolve:
+    """``explained_variance`` of a covariance representation that has no
+    cheaper form than its ``solve``: diag(cross^T A^-1 cross) as the column
+    sums of solve(cross) o cross."""
+
+    def explained_variance(self, cross: torch.Tensor) -> torch.Tensor:
+        return torch.sum(self.solve(cross) * cross, dim=0)
+
+
 @dataclasses.dataclass(frozen=True)
-class DirectInverse:
+class DirectInverse(ExplainedBySolve):
     """A covariance held by its explicit inverse: solve is one product."""
 
     inverse_matrix: torch.Tensor
@@ -269,7 +307,7 @@ class DirectInverse:
 
 
 @dataclasses.dataclass(frozen=True)
-class ExplainedCovariance:
+class ExplainedCovariance(ExplainedBySolve):
     """C = K (K - P)^-1 K, the covariance ``fit_from_prediction`` rebuilds
     from a prediction P: ``explained`` holds K - P, so solve(rhs) =
     C^-1 rhs = K^-1 (K - P) K^-1 rhs.  Each solve factorizes the prior K

@@ -27,6 +27,7 @@ from ..core.dataset import RegressionDataset, feature_count, float_like
 from ..core.distributions import MarginalDistribution
 from ..kernels.features import as_measurement
 from ..models.gp import GaussianProcess, GPFit
+from ..ops.linalg import ExplainedBySolve
 from .cholesky import (
     distributed_cholesky,
     distributed_inverse_blocks,
@@ -49,7 +50,7 @@ LOG_2PI = math.log(2.0 * math.pi)
 
 
 @dataclasses.dataclass(frozen=True)
-class DistributedCholesky:
+class DistributedCholesky(ExplainedBySolve):
     """Row-sharded Cholesky factor (a ``Shard(0)`` DTensor) bound to its
     mesh."""
 
@@ -74,7 +75,7 @@ class DistributedCholesky:
 
 
 @dataclasses.dataclass(frozen=True)
-class DistributedCholesky2D:
+class DistributedCholesky2D(ExplainedBySolve):
     """Tile-sharded Cholesky factor (a DTensor tiled over ``row_axis`` and
     ``col_axis``) bound to its mesh: N^2/(R C) factor entries a rank."""
 

@@ -6,7 +6,9 @@
 Builds the hand-written CUDA kernels from ``albatross_tpu_torch/csrc``,
 holds each against its plain PyTorch version on the card at the main
 path's shapes (the trailing-update kernel also against f64 and cuBLAS's
-``addmm_`` loop, at 27, 13 and 1 later column panels of 1024), then runs
+``addmm_`` loop, at 27, 13 and 1 later column panels of 1024; the
+whitening kernel of a prediction's variance against f64, its one-solve
+plain form and the two cuBLAS trsm it replaced), then runs
 the main path through the public API at full
 size -- ``log_likelihood`` and ``fit -> predict -> marginal`` of
 SquaredExponential(0.5, 1.0) + measurement_only(IndependentNoise(0.3)),
@@ -132,6 +134,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import importlib
 import json
@@ -155,6 +158,8 @@ TRAIL_B = 1024     # the trailing-update phase: panel width and later column pan
 TRAIL_PANELS = (27, 13, 1)
 TRAIL_F64_TIMES = 4.0   # the kernel's error against f64 within this many times cuBLAS FP32's
 TRAIL_PLAIN_TOL = 1e-5  # kernel against its plain version, over the largest f64 entry
+WHITEN_F32_TIMES = 3.0  # the whitening kernel's error against f64 within this many times cuBLAS's f32 solve's
+WHITEN_PLAIN_TOL = 1e-5  # the whitening kernel against its split-product plain version, over the largest f64 entry
 REPS = 5
 GRAD_REPS = 10     # value+grad evaluations timed at N_GRAD (bench.py times 8)
 BIG_GRAD_REPS = 3  # value+grad evaluations timed at N
@@ -343,7 +348,9 @@ SPLIT_TOL = {"per-walker f32": 1e-5}
 # GP against the single-process GP on the same f32 data on the card, the
 # largest error over the largest single-process entry: on a world of one
 # rank both run the same factorization and solves, bit for bit (read 0;
-# gated at 1e-7, about one f32 ulp); on the gloo world of 4 about 10x the
+# gated at 1e-7, about one f32 ulp; the single process's variance by its
+# factor's two solves, as the distributed GP forms it, where its own
+# marginal prediction takes the whitening kernel); on the gloo world of 4 about 10x the
 # first reading (other block sizes and summation orders).
 MODE_TOLS = {"plain": 9.5e-6, "compensated": 1.2e-5, "double_word": 9.5e-6, "both": 1.2e-5,
              "plain rounded": 1.9e-6, "compensated rounded": 1.3e-7, "double_word rounded": 1.9e-6,
@@ -2365,6 +2372,8 @@ def check_distributed_one(torch, np, pt, _build, card: str) -> dict:
     from albatross_tpu_torch import parallel as par
     from albatross_tpu_torch.evaluation.cross_validation_utils import held_out_predictions
     from albatross_tpu_torch.indexing import LeaveOneOutGrouper, group_by
+    from albatross_tpu_torch.models.gp import marginal_variance
+    from albatross_tpu_torch.ops.linalg import ExplainedBySolve
 
     t0 = time.perf_counter()
     x_np, y_np = unique_grid(np, N, SEED)
@@ -2410,7 +2419,15 @@ def check_distributed_one(torch, np, pt, _build, card: str) -> dict:
             torch.cuda.synchronize()
             times[f"{name} loo"] = time.perf_counter() - t
             peaks[f"{name} loo"] = torch.cuda.max_memory_allocated() / 2**30
-            results[name] = {"nlml": ll, "mean": pred.mean, "variance": pred.variance,
+            variance = pred.variance
+            if name == "single":
+                # the distributed factors solve twice for the variance (ExplainedBySolve); the single fit's own
+                # variance takes the whitening kernel, held against f64 by check_whiten and the main path's gate,
+                # so the comparison takes the single factor's two solves (no reference to the factor outlives
+                # this line)
+                variance = marginal_variance(model.covariance_function.diag(xs), ExplainedBySolve.explained_variance(
+                    fit.fit.train_covariance, model._cross(fit.fit, xs)))
+            results[name] = {"nlml": ll, "mean": pred.mean, "variance": variance,
                              "loo mean": loo.means[:, 0], "loo variance": loo.variances[:, 0]}
             print(f"[{card}] distributed world 1 (NCCL) N={N}, {name}: launches in one NLML {nlml_counts}, in "
                   f"it and one fit + predict {counts}")
@@ -2697,6 +2714,11 @@ def check_distributed_four(torch, np, pt, _build, card: str) -> dict:
     ref = _dist_run(torch, np, pt, _build, None)
     ref2d = _dist_run_2d(torch, np, pt, _build, None)
     ref_sparse = _dist_run_sparse(torch, np, pt, _build, None)
+    # the ranks share the card with this process: hand its cached blocks back before they allocate
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[{card}] gloo world: this process holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved, as the ranks start")
     rendezvous = tempfile.mkdtemp()
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=_dist_rank, args=(r, DIST_WORLD, rendezvous, str(Path(__file__).resolve().parent)))
@@ -3638,6 +3660,99 @@ def check_trailing(torch, _build, card: str) -> dict:
     return rows
 
 
+def whiten_flops(n: int, mp: int, b: int) -> float:
+    """FLOP of the whitening kernel at n training points, mp (padded)
+    columns and panels of b: the updates' b^2 mp P (P - 1), and three
+    products of b (b + 128) mp a panel (the whiten, its residual and its
+    refinement, each over a lower triangle by whole tiles)."""
+    panels = n // b
+    return float(b * b * mp * panels * (panels - 1) + 3 * b * (b + 128) * mp * panels)
+
+
+def two_trsm_variance(torch, L, cross):
+    """The explained variance as the port formed it before the kernel:
+    A^-1 k by two cuBLAS trsm (CholeskyFactor.solve), times k, summed by
+    column; chip_smoke's yardstick, which the port no longer calls."""
+    y = torch.linalg.solve_triangular(L, cross, upper=False)
+    return torch.sum(torch.linalg.solve_triangular(L.T, y, upper=True) * cross, dim=0)
+
+
+def check_whiten(torch, _build, card: str, x, xs, diag) -> dict:
+    """The whitening kernel (ops/whiten.py) at the main path's shapes: the
+    f32 factor of the N-point training covariance and the (N, N_TEST) cross
+    covariance, and at N_TEST - 96 columns (padded to a multiple of 128).
+    Against the substitution in f64 on the same factor (the gate: within
+    WHITEN_F32_TIMES of the error of the plain one-solve form, cuBLAS's f32
+    trsm) and against its split-product plain version; 4 P - 1 launches;
+    bit-equal across two runs; CUDA-event times beside the bound (the
+    operations at 494.7 / 3 TFLOP/s, the 3xTF32 rate), of the whole call
+    and of its diagonal blocks and their inverses, the plain one-solve form
+    and the two cuBLAS trsm (the library column)."""
+    from albatross_tpu_torch.ops.blocked_cholesky import cuda_block_size
+    from albatross_tpu_torch.ops.linalg import CholeskyFactor
+    from albatross_tpu_torch.ops.radial_gram import radial_gram
+    from albatross_tpu_torch.ops.whiten import (
+        diagonal_blocks,
+        plain_explained_variance,
+        split_explained_variance,
+        whiten_sumsq,
+    )
+
+    L = CholeskyFactor.factorize(radial_gram(x, x, LENGTH_SCALE, SIGMA, PROFILE, diag_add=diag),
+                                 assume_symmetric=True).L
+    b = cuda_block_size(N)
+    r = {}
+    for m in (N_TEST, N_TEST - 96):
+        cross = radial_gram(x, xs[:m], LENGTH_SCALE, SIGMA, PROFILE)
+        ref = torch.sum(torch.linalg.solve_triangular(L.double(), cross.double(), upper=False) ** 2, dim=0)
+        scale = ref.abs().max().item()
+        _build.reset_launch_counts()
+        got = whiten_sumsq(L, cross)
+        counts = dict(_build.LAUNCHES)
+        same = torch.equal(got, whiten_sumsq(L, cross))
+        errs = {"kernel": (got.double() - ref).abs().max().item() / scale}
+        split = split_explained_variance(L, cross, b)
+        for what, value in (("plain", plain_explained_variance(L, cross)),
+                            ("two_trsm", two_trsm_variance(torch, L, cross)), ("split", split)):
+            errs[what] = (value.double() - ref).abs().max().item() / scale
+        errs["kernel_vs_split"] = (got - split).abs().max().item() / scale
+        print(f"whiten_sumsq N={N} m={m} b={b}: rel err vs f64 on the same factor: kernel {errs['kernel']:.3e}, "
+              f"plain one-solve f32 {errs['plain']:.3e}, two trsm f32 {errs['two_trsm']:.3e}, split plain "
+              f"{errs['split']:.3e}; kernel vs split {errs['kernel_vs_split']:.3e}; bit-equal across runs {same}; "
+              f"launches {counts['whiten_sumsq']}")
+        if counts["whiten_sumsq"] != 4 * (N // b) - 1 or sum(counts.values()) != counts["whiten_sumsq"]:
+            fail(f"whiten_sumsq m={m} launched {counts}")
+        if not same:
+            fail(f"whiten_sumsq m={m} is not bit-equal across two runs")
+        if not errs["kernel"] <= WHITEN_F32_TIMES * errs["plain"]:
+            fail(f"whiten_sumsq m={m} is further from f64 than {WHITEN_F32_TIMES} times cuBLAS's f32 solve: {errs}")
+        if not errs["kernel_vs_split"] <= WHITEN_PLAIN_TOL:
+            fail(f"whiten_sumsq m={m} disagrees with its plain version: {errs['kernel_vs_split']}")
+        if m == N_TEST:
+            r.update({f"{k}_rel_err": v for k, v in errs.items()})
+    del ref, split
+    cross = radial_gram(x, xs, LENGTH_SCALE, SIGMA, PROFILE)
+    flops = whiten_flops(N, N_TEST, b)
+    r.update({
+        "ms": cuda_ms(torch, lambda: whiten_sumsq(L, cross)),
+        "blocks_ms": cuda_ms(torch, lambda: diagonal_blocks(L, b)),
+        "plain_ms": cuda_ms(torch, lambda: plain_explained_variance(L, cross), batch=2),
+        "library_two_trsm_ms": cuda_ms(torch, lambda: two_trsm_variance(torch, L, cross), batch=2),
+        "split_plain_ms": cuda_ms(torch, lambda: split_explained_variance(L, cross, b), reps=1, batch=1),
+        "bound_ms": flops / TF32_FLOP_PER_S * 1e3, "bound_3xtf32_ms": 3 * flops / TF32_FLOP_PER_S * 1e3,
+        "flops": flops,
+    })
+    launches_ms = r["ms"] - r["blocks_ms"]
+    print(f"[{card}] whiten_sumsq ({N}, {N_TEST}), b={b}: {r['ms']:.4f} ms a call, of which the diagonal blocks and "
+          f"their inverses {r['blocks_ms']:.4f} ms and the launches {launches_ms:.4f} ms "
+          f"({flops / launches_ms / 1e9:.1f} TFLOP/s; {r['bound_3xtf32_ms'] / launches_ms:.1%} of the 3xTF32 bound "
+          f"{r['bound_3xtf32_ms']:.4f} ms, {r['bound_ms'] / launches_ms:.1%} of {r['bound_ms']:.4f} ms at 494.7 "
+          f"TFLOP/s); plain one-solve {r['plain_ms']:.4f} ms; two cuBLAS trsm {r['library_two_trsm_ms']:.4f} ms; "
+          f"split plain {r['split_plain_ms']:.4f} ms")
+    del L, cross
+    return r
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -3825,6 +3940,7 @@ def main() -> int:
     print(f"panel b=1024 main path's first panel, rel err vs f64: {'; '.join(line)}")
 
     trailing = check_trailing(torch, _build, card)
+    whiten = check_whiten(torch, _build, card, x, xs, diag)
 
     # -- the main path, through the public API -----------------------------
     model = bench_model(pt)
@@ -3846,7 +3962,7 @@ def main() -> int:
             or nlml_counts["radial_gram_cols"] != 0):
         fail(f"log_likelihood launch counts {nlml_counts}")
     if (path_counts["radial_gram"] < 1 or path_counts["radial_gram_diag"] != 2
-            or path_counts["panel_cholinv"] != 2 * PANELS):
+            or path_counts["panel_cholinv"] != 2 * PANELS or path_counts["whiten_sumsq"] != 4 * PANELS - 1):
         fail(f"main-path launch counts {path_counts}")
 
     # f64 plain reference on the card, same inputs
@@ -4081,6 +4197,11 @@ def main() -> int:
         kernels.append({"name": f"trailing_update_P{panels}", "route": "cuda",
                         "source": "albatross_tpu_torch/csrc/trailing_update.cu",
                         "replaces": "XLA GEMMs, albatross_tpu/ops/blocked_cholesky.py", **r})
+    kernels.append({"name": "whiten_sumsq", "route": "cuda", "source": "albatross_tpu_torch/csrc/whiten_sumsq.cu",
+                    "replaces": "two XLA triangular solves, albatross_tpu/models/gp.py",
+                    "launches": path_counts["whiten_sumsq"], "value_grad_launches": grad_counts["launches"]["whiten_sumsq"],
+                    **{f"{phase}_launches": counts["whiten_sumsq"] for phase, counts in phase_counts.items()},
+                    **whiten})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -87,8 +87,9 @@ def test_marginal_clamps_only_rounding_negatives():
     """The predictive-variance clamp: rounding-scale negatives become 0,
     grossly negative values pass through so a failure surfaces."""
     from albatross_tpu_torch.models.gp import gp_marginal_prediction
+    from albatross_tpu_torch.ops.linalg import ExplainedBySolve
 
-    class Solve:
+    class Solve(ExplainedBySolve):
         def __init__(self, scale):
             self.scale = scale
 

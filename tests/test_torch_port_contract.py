@@ -158,7 +158,7 @@ def test_cpu_tensors_never_launch_kernels():
                                "radial_gram_diag_batched": 0, "radial_gram_highd": 0, "radial_gram_diag_highd": 0,
                                "radial_gram_cols_highd": 0, "radial_gram_diag_batched_highd": 0,
                                "radial_gram_d2_highd": 0, "panel_cholinv": 0, "panel_cholinv_batched": 0,
-                               "trailing_update": 0, "trailing_update_backward": 0}
+                               "trailing_update": 0, "trailing_update_backward": 0, "whiten_sumsq": 0}
 
 
 def test_params_from_numpy():

@@ -126,6 +126,7 @@ NESTING = {
         "albatross.gp.predict": {None},
         "albatross.gram": {"albatross.gp.predict"},
         "albatross.solve": {"albatross.gp.predict"},
+        "albatross.solve.whiten": {"albatross.solve"},
     },
     "temperature": {
         LL: {None},
